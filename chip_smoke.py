@@ -16,6 +16,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 4. the slice: the seeded hub4-class fixture (cmusphinx_tpu_torch.fixture,
    16 utterances) through NgramSearch.decode_batch_cep with K1, its launch
    count, hypotheses against the plain scorer's on the card, WER and xRT.
+5. semicont_scorer: PsParityScorer (8-bit and 4-bit weights) and
+   SemiContinuousScorer at the hub4wsj_sc_8k width (S=5150, K=256, 3x13
+   svspec streams, top-4, T=2000 frames of the semi-continuous fixture) on
+   the card against the same modules on the host CPU: PsParityScorer's
+   epilogue bit-exact on the card's own int32 densities, the densities
+   within D*2^-22*M + 1, at most 1 in 1000 senone scores differing; the
+   time of each stage (CUDA events) and the peak device memory.
+6. semicont_slice: the semi-continuous fixture (16 utterances) through
+   decode_batch_cep with PsParityScorer: WER, xRT (median of 5 passes),
+   the scorer's share of a pass, peak memory; repeated passes must give
+   identical hypotheses.
+7. decoder: both fixtures written as model directories
+   (fixture.write_model_dir) and loaded by Decoder(hmm=, lm=, dict=,
+   device="cuda"): the scorer class the model selects, 4 utterances through
+   decode_cep_file equal to the same Decoder's decode_batch_cep, K1
+   launched by the continuous model, and one decode_raw of seeded 16-bit
+   PCM whose cepstra from the card's Frontend match the CPU Frontend's.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -24,18 +41,23 @@ Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch._host import write_mfc
+from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode import NgramSearch
-from cmusphinx_tpu_torch.frontend import FeatPipeline
-from cmusphinx_tpu_torch.ops import ContinuousScorer, fused_gmm
+from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend
+from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
+                                     SemiContinuousScorer, fused_gmm)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 
@@ -49,6 +71,15 @@ SAME_MODE = D * 2.0 ** -22
 MODE_BOUND = {"highest": D * 2.0 ** -22, "high": 2.0 ** -14,
               "bf16": 2.0 ** -6}
 DECODE_PASSES = 5
+T_SEMI, TOPN = 2000, 4
+# Share of (t, s) whose PsParityScorer score may differ between the card
+# and the host CPU (the f32 density GEMMs sum in another order; the 10-bit
+# shift absorbs nearly every unit of difference; the tests measured none).
+PS_DIFF_SHARE = 1e-3
+# Frontend: 1e-4 on each log-mel value, carried through |dct| and the
+# lifter (tests/test_torch_fe.py).
+LOGMEL_TOL = 1e-4
+DECODER_UTTS = 4
 
 
 def emit(obj) -> None:
@@ -179,9 +210,8 @@ def check_k1(dev, floored: bool, modes) -> dict:
 
 
 # ----------------------------------------------------------------------
-def phase_slice(dev) -> dict:
+def phase_slice(dev, fx) -> dict:
     t0 = time.perf_counter()
-    fx = fixture.build(SEED)
     fp = FeatPipeline(fx.feat_config(), device=dev)
     scorer = ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev)
     search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, scorer, device=dev)
@@ -249,6 +279,244 @@ def phase_slice(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+def peak_mb() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def semi_inputs(fx, n: int) -> np.ndarray:
+    """The first n feature frames of the semi-continuous fixture."""
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    return np.concatenate(fp.compute_batch(fx.ceps))[:n]
+
+
+def int_density_bound(sc, x) -> list:
+    """Per stream, floor(D*2^-22*M) + 1 with M = |const| + sum|x lin| +
+    sum x^2 prec in float64: how far two f32 GEMM orders may move the
+    truncated densities."""
+    out = []
+    for f in range(sc.n_feat):
+        xs = x[:, getattr(sc, f"slice{f}")].double()
+        m = getattr(sc, f"means{f}").double()
+        p = getattr(sc, f"prec{f}").double()
+        const = getattr(sc, f"lrd{f}").double() - (p * m * m).sum(-1)
+        M = const.abs() + xs.abs() @ (2 * p * m).abs().T + (xs * xs) @ p.T
+        out.append(torch.floor(xs.shape[1] * 2.0 ** -22 * M) + 1)
+    return out
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def check_psparity(dev, fx, raw, wrap: bool, x_cpu) -> dict:
+    sl = fx.stream_slices()
+    cpu = PsParityScorer(fx.gauden, raw, sl, topn=TOPN, wrap_uint8=wrap,
+                         device="cpu")
+    gpu = PsParityScorer(fx.gauden, raw, sl, topn=TOPN, wrap_uint8=wrap,
+                         device=dev)
+    x = x_cpu.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    d_gpu = gpu.int_densities(x)
+    got = gpu.epilogue(d_gpu)
+    torch.cuda.synchronize()
+    peak = peak_mb() - base
+    d_cpu = cpu.int_densities(x_cpu)
+    bounds = int_density_bound(gpu, x)
+    dmax = 0
+    for a, b, lim in zip(d_gpu, d_cpu, bounds):
+        diff = (a.cpu().long() - b.long()).abs()
+        dmax = max(dmax, int(diff.max()))
+        if bool((diff > lim.cpu()).any()):
+            raise AssertionError("PsParityScorer densities beyond "
+                                 "D*2^-22*M + 1 of the CPU's")
+    # Stage (b) on the card against the CPU, on the card's densities.
+    if not torch.equal(got.cpu(), cpu.epilogue([d.cpu() for d in d_gpu])):
+        raise AssertionError("PsParityScorer epilogue differs from the "
+                             "CPU's on identical int32 densities")
+    want = cpu.score(x_cpu)
+    q = (got.cpu() - want).abs() / gpu.scale
+    n_diff = int((q > 0).sum())
+    r = {"weights": "4-bit (wrap_uint8)" if wrap else "8-bit",
+         "max_int_density_diff": dmax, "scores_differing": n_diff,
+         "share_differing": n_diff / q.numel(),
+         "max_diff_quanta": float(q.max()),
+         "ms": cuda_ms(lambda: gpu.score(x)),
+         "densities_ms": cuda_ms(lambda: gpu.int_densities(x)),
+         "epilogue_ms": cuda_ms(lambda: gpu.epilogue(d_gpu)),
+         "cpu_ms": 1e3 * timed(lambda: cpu.score(x_cpu)),
+         "peak_mb_over_inputs": peak}
+    if n_diff / q.numel() > PS_DIFF_SHARE:
+        raise AssertionError(f"PsParityScorer: {n_diff} scores differ "
+                             f"from the CPU's: {r}")
+    if not bool(torch.isfinite(got).all()) or \
+            got.shape != (len(x), raw.shape[-1]):
+        raise AssertionError("PsParityScorer: bad output")
+    return r
+
+
+def phase_semicont_scorer(dev, fx) -> dict:
+    x_cpu = torch.as_tensor(semi_inputs(fx, T_SEMI))
+    raw8, meta = fixture.sendump_bytes(fx)
+    assert meta["n_bits"] == 8
+    # A 4-bit sendump holds bytes of a 16-entry codebook; values up to 255
+    # make the uint8 wrap happen.
+    rng = np.random.RandomState(SEED + 5)
+    cb = np.sort(rng.choice(256, 16, replace=False)).astype(np.uint8)
+    raw4 = cb[rng.randint(16, size=raw8.shape)]
+    out = {"phase": "semicont_scorer", "S": raw8.shape[2],
+           "K": fx.gauden.n_density, "streams": fx.gauden.veclen,
+           "topn": TOPN, "T": T_SEMI,
+           "psparity": [check_psparity(dev, fx, raw8, False, x_cpu),
+                        check_psparity(dev, fx, raw4, True, x_cpu)]}
+    sl = fx.stream_slices()
+    cpu = SemiContinuousScorer(fx.gauden, fx.ln_mixw, sl, topn=TOPN,
+                               device="cpu")
+    gpu = SemiContinuousScorer(fx.gauden, fx.ln_mixw, sl, topn=TOPN,
+                               device=dev)
+    x = x_cpu.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    got = gpu.score(x)
+    torch.cuda.synchronize()
+    peak = peak_mb() - base
+    want = cpu.score(x_cpu)
+    err = (got.cpu() - want).abs()
+    lim = sum(b.max(1, keepdim=True).values.cpu() for b in
+              int_density_bound(gpu, x)) + 1e-5 * want.abs()
+    out["semicontinuous"] = {
+        "max_abs_err": float(err.max()), "worst_err_over_bound":
+        float((err / lim).max()), "ms": cuda_ms(lambda: gpu.score(x)),
+        "cpu_ms": 1e3 * timed(lambda: cpu.score(x_cpu)),
+        "peak_mb_over_inputs": peak}
+    emit(out)
+    if out["semicontinuous"]["worst_err_over_bound"] > 1.0:
+        raise AssertionError(f"SemiContinuousScorer: card and CPU disagree: "
+                             f"{out['semicontinuous']}")
+    return out
+
+
+def phase_semicont_slice(dev, fx) -> dict:
+    t0 = time.perf_counter()
+    raw, meta = fixture.sendump_bytes(fx)
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    scorer = PsParityScorer(fx.gauden, raw, fx.stream_slices(), topn=TOPN,
+                            wrap_uint8=meta["n_bits"] == 4, device=dev)
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, scorer, device=dev)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hyps = search.decode_batch_cep(fx.ceps, fp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = peak_mb()
+    walls = []
+    for _ in range(DECODE_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = search.decode_batch_cep(fx.ceps, fp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if [h.words for h in again] != [h.words for h in hyps]:
+            raise AssertionError("repeated decode changed its hypotheses")
+    for h in hyps:
+        if not (h.segments and np.isfinite(h.score)):
+            raise AssertionError(f"empty or non-finite hypothesis: {h}")
+    # The scorer alone at the pass's batch shape.
+    c, T, _ = search._pad(fx.ceps)
+    with torch.inference_mode():
+        feats = fp._padded_kernel(c, T, True)
+        score_ms = cuda_ms(lambda: scorer.score(feats), reps=3)
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, hyps))
+    n_ref = sum(len(r) for r in fx.transcripts)
+    med = statistics.median(walls)
+    out = {"phase": "semicont_slice", "fixture": "semi seed 0",
+           "S": fx.size.n_sen, "K": fx.gauden.n_density,
+           "streams": fx.gauden.veclen, "utterances": len(fx.ceps),
+           "frames_padded": int(feats.shape[1]),
+           "audio_s": fx.audio_seconds, "setup_s": setup_s,
+           "first_decode_s": first_s, "decode_s": walls,
+           "median_decode_s": med, "xRT": fx.audio_seconds / med,
+           "scorer_ms_per_batch": score_ms,
+           "scorer_share": score_ms / 1e3 / med, "peak_mb": peak,
+           "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref}
+    emit(out)
+    return out
+
+
+def phase_decoder(dev, fixtures) -> dict:
+    out = {"phase": "decoder", "models": {}}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, fx in fixtures.items():
+            kw = fixture.write_model_dir(fx, os.path.join(tmp, model))
+            t0 = time.perf_counter()
+            dec = Decoder(device=dev, **kw)
+            init_s = time.perf_counter() - t0
+            want_cls = {"cont": ContinuousScorer,
+                        "semi": PsParityScorer}[model]
+            if type(dec.scorer) is not want_cls:
+                raise AssertionError(f"{model}: Decoder chose "
+                                     f"{type(dec.scorer).__name__}")
+            paths = []
+            for i, c in enumerate(fx.ceps[:DECODER_UTTS]):
+                paths.append(os.path.join(tmp, f"{model}{i}.mfc"))
+                write_mfc(paths[-1], c)
+            # The main path, once, counted.
+            fused_gmm.fused_mixture_scores.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hyps = [dec.decode_cep_file(p) for p in paths]
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            launches = fused_gmm.fused_mixture_scores.launches
+            batch = dec.search.decode_batch_cep(fx.ceps[:DECODER_UTTS],
+                                                dec.fp)
+            if [h.words for h in hyps] != [h.words for h in batch]:
+                raise AssertionError(f"{model}: decode_cep_file and "
+                                     f"decode_batch_cep disagree")
+            if (launches > 0) != (model == "cont"):
+                raise AssertionError(f"{model}: K1 launched {launches} times")
+            errs = sum(fixture.word_errors(r, h.words)
+                       for r, h in zip(fx.transcripts, hyps))
+            out["models"][model] = {
+                "scorer": type(dec.scorer).__name__, "init_s": init_s,
+                "decode_cep_file_s": decode_s, "k1_launches": launches,
+                "word_errors": errs,
+                "ref_words": sum(len(r) for r in fx.transcripts[:len(hyps)])}
+        # decode_raw on the semi-continuous model (hub4-like frontend).
+        raw = fixture.synthetic_pcm(SEED)
+        raw_path = os.path.join(tmp, "speech.raw")
+        raw.tofile(raw_path)
+        t0 = time.perf_counter()
+        h = dec.decode_raw(raw_path)
+        raw_s = time.perf_counter() - t0
+        cpu_fe = Frontend(dec.config, device="cpu")
+        want = cpu_fe.process(raw.astype(np.float32))
+        got = dec.fe.process(raw.astype(np.float32))
+        b = np.full(cpu_fe.nfilt, LOGMEL_TOL) @ np.abs(
+            cpu_fe.dct.numpy().astype(np.float64))
+        if cpu_fe.lifter is not None:
+            b = b * np.abs(cpu_fe.lifter.numpy())
+        err = np.abs(got.astype(np.float64) - want)
+        out["decode_raw"] = {"samples": len(raw), "frames": len(got),
+                             "words": len(h.words), "seconds": raw_s,
+                             "cep_max_abs_err": float(err.max()),
+                             "worst_err_over_bound": float((err / b).max())}
+    out["k1_launches"] = out["models"]["cont"]["k1_launches"]
+    out["peak_mb"] = peak_mb()
+    emit(out)
+    if got.shape != want.shape or out["decode_raw"]["worst_err_over_bound"] > 1:
+        raise AssertionError(f"card and CPU Frontend disagree: {out}")
+    return out
+
+
 def main() -> int:
     info = phase_device()
     dev = torch.device("cuda:0")
@@ -256,13 +524,18 @@ def main() -> int:
     phase_build()
     k1 = check_k1(dev, floored=False, modes=MODES)
     check_k1(dev, floored=True, modes=("highest", "high"))
-    sl = phase_slice(dev)
+    cont = fixture.build(SEED)
+    sl = phase_slice(dev, cont)
+    semi = fixture.build(SEED, model="semi")
+    phase_semicont_scorer(dev, semi)
+    phase_semicont_slice(dev, semi)
+    dec = phase_decoder(dev, {"cont": cont, "semi": semi})
     main_mode = k1["highest"]
     emit({"kernels": [{
         "name": "fused_gmm", "route": "cuda",
         "source": "cmusphinx_tpu_torch/csrc/fused_gmm.cu",
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
-        "launches": sl["k1_launches"],
+        "launches": sl["k1_launches"] + dec["k1_launches"],
         "max_abs_err": main_mode["max_abs_err"],
         "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"]}]})
     print(info["nvidia_smi"], flush=True)

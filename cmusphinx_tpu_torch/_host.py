@@ -1,11 +1,12 @@
 """Host-only code shared with the JAX package, reached without importing JAX.
 
 The port reuses the reference package's host-side readers and builders
-instead of copying them: the model readers (`models.mdef`, `dict`,
-`dict2pid`, `tmat`, `gauden`, `ngram`, `sendump`), the configuration and
-binary-I/O helpers (`utils.config`, `utils.bio`), the LM estimator
-(`lm.estimate`) and the lexicon-graph builder (`decode.lexgraph`).  All of
-them are numpy-only, so the port runs on a machine that has no JAX.
+instead of copying them: the model readers and writers (`models.mdef`,
+`dict`, `dict2pid`, `tmat`, `gauden`, `ngram`, `sendump`, `mllr`,
+`lmset`), the configuration and binary-I/O helpers (`utils.config`,
+`utils.bio`), the LM estimator (`lm.estimate`) and the lexicon-graph
+builder (`decode.lexgraph`).  All of them are numpy-only, so the port runs
+on a machine that has no JAX.
 
 The coupling, written down:
 
@@ -19,8 +20,10 @@ The coupling, written down:
   imports (`..models.*`) then resolve to the jax-free model modules.  If the
   JAX package already loaded it in this process, that module is reused.
 - `Hypothesis`/`Segment` (`decode/fsg_search.py`), `NGRAM_ARGS`
-  (`decode/ngram_search.py`) and `FEAT_ARGS` (`frontend/feat.py`) sit in
-  modules that import JAX; the port keeps its own copies of them.
+  (`decode/ngram_search.py`), `FEAT_ARGS` (`frontend/feat.py`), `FE_ARGS`
+  and the filterbank builders (`frontend/fe.py`) and `DECODER_ARGS`
+  (`api.py`) sit in modules that import JAX; the port keeps its own
+  copies of them.
 
 A change to any of these reference modules that adds a JAX import breaks
 the port; `tests/test_torch_nojax.py` catches that.
@@ -37,10 +40,15 @@ from cmusphinx_tpu.lm.estimate import train_lm
 from cmusphinx_tpu.models.dict import Dictionary
 from cmusphinx_tpu.models.dict2pid import Dict2Pid
 from cmusphinx_tpu.models.gauden import GaussianParams, read_gauden
+from cmusphinx_tpu.models.lmset import NgramModelSet
 from cmusphinx_tpu.models.mdef import BAD_SENID, Mdef
+from cmusphinx_tpu.models.mllr import MllrTransform
 from cmusphinx_tpu.models.ngram import NgramModel
+from cmusphinx_tpu.models.sendump import (read_mixture_weights, read_sendump,
+                                          write_sendump)
 from cmusphinx_tpu.models.tmat import TransitionMatrices
-from cmusphinx_tpu.utils.bio import S3File, write_s3_header
+from cmusphinx_tpu.utils.bio import (S3File, read_mfc, write_mfc,
+                                     write_s3_header)
 from cmusphinx_tpu.utils.config import Arg, Config
 from cmusphinx_tpu.utils.logmath import LOG_ZERO
 
@@ -68,7 +76,8 @@ build_word_graph = _lexgraph.build_word_graph
 
 __all__ = [
     "Arg", "BAD_SENID", "Config", "Dict2Pid", "Dictionary", "GaussianParams",
-    "LOG_ZERO", "Mdef", "NgramModel", "S3File", "TransitionMatrices",
-    "WordGraph", "build_word_graph", "read_gauden", "train_lm",
-    "write_s3_header",
+    "LOG_ZERO", "Mdef", "MllrTransform", "NgramModel", "NgramModelSet",
+    "S3File", "TransitionMatrices", "WordGraph", "build_word_graph",
+    "read_gauden", "read_mfc", "read_mixture_weights", "read_sendump",
+    "train_lm", "write_mfc", "write_s3_header", "write_sendump",
 ]

@@ -1,0 +1,293 @@
+"""Top-level decoder API (port of `cmusphinx_tpu/api.py`: `DECODER_ARGS` and
+the non-streaming N-gram path of `Decoder`).
+
+    d = Decoder(hmm=".../model_dir", lm=".../lm.arpa", dict=".../words.dict",
+                device="cuda")
+    d.start_utt()
+    d.process_raw(samples)         # any number of chunks
+    d.end_utt()
+    print(d.hyp().text)
+
+The acoustic scorer is chosen from the model directory the way
+acmod_init_am does (acmod.c:78), in the reference's order: a `sendump`
+gives the bit-faithful `PsParityScorer` (or, with `-parity no`,
+`SemiContinuousScorer`); otherwise `mixture_weights` with one codebook set
+gives `SemiContinuousScorer`, one codebook per senone `ContinuousScorer`
+(kernel K1 on CUDA), one per CI phone `PTMScorer`; `-lambda` wraps it in
+`InterpolatedScorer`.  `device` says where the scorer, the feature
+pipeline, the frontend and the search live.
+
+Not ported yet, and raising NotImplementedError: streaming utterances and
+lattices, n-best lists and posteriors (ROADMAP A11), the grammar, allphone
+and alignment searches (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ._host import (Arg, Config, Dictionary, Mdef, MllrTransform, NgramModel,
+                    NgramModelSet, TransitionMatrices, read_gauden, read_mfc,
+                    read_mixture_weights, read_sendump)
+from .decode.ngram_search import NGRAM_ARGS, NgramSearch
+from .decode.results import Hypothesis, Segment
+from .frontend.fe import FE_ARGS, Frontend
+from .frontend.feat import FEAT_ARGS, FeatPipeline
+from .ops.gmm import (ContinuousScorer, InterpolatedScorer, PsParityScorer,
+                      PTMScorer, SemiContinuousScorer)
+
+DECODER_ARGS = [
+    Arg("hmm", str, "", "Directory containing acoustic model files"),
+    Arg("mdef", str, "", "Model definition input file"),
+    Arg("mean", str, "", "Mixture gaussian means input file"),
+    Arg("var", str, "", "Mixture gaussian variances input file"),
+    Arg("tmat", str, "", "HMM state transition matrix input file"),
+    Arg("mixw", str, "", "Senone mixture weights input file"),
+    Arg("sendump", str, "", "Senone dump (compressed mixture weights) input file"),
+    Arg("featparams", str, "", "File containing feature extraction parameters"),
+    Arg("dict", str, "", "Main pronunciation dictionary input file"),
+    Arg("fdict", str, "", "Noise word pronunciation dictionary input file"),
+    Arg("lm", str, "", "Word trigram language model input file"),
+    Arg("lmctl", str, "", "Specify a set of language models"),
+    Arg("lmname", str, "", "Which language model in -lmctl to use initially"),
+    Arg("fsg", str, "", "Sphinx format finite state grammar file"),
+    Arg("jsgf", str, "", "JSGF grammar file"),
+    Arg("srgs", str, "", "SRGS XML grammar file (libcfg s3_cfg_srgs)"),
+    Arg("cfg", str, "",
+        "Plain CFG production file (libcfg s3_cfg_read_simple format)"),
+    Arg("cfg_maxexp", int, 2,
+        "Max recursive expansions per nonterminal in CFG->FSG conversion"),
+    Arg("allphone", str, "",
+        "Perform phoneme decoding with phonetic lm (sphinx3 mode 1 / "
+        "ps -allphone); value is a phone N-gram LM path or 'uniform'"),
+    Arg("toprule", str, "", "Start rule for JSGF (first public rule is default)"),
+    Arg("varfloor", float, 0.0001, "Mixture gaussian variance floor"),
+    Arg("mllr", str, "", "MLLR transform to apply to acoustic model means"),
+    Arg("lambda", str, "",
+        "CD/CI senone interpolation weights file (sphinx3 -lambda, "
+        "libam/interp.c): .npy or one-float-per-line text of per-senone "
+        "lambdas from deleted interpolation"),
+    Arg("parity", bool, True,
+        "Use the bit-faithful reference senone scorer for sendump models"),
+    Arg("topn", int, 4, "Number of top Gaussians to use in scoring"),
+    Arg("gmmprec", str, "highest",
+        "Continuous-GMM GEMM precision: highest (6-pass f32), high "
+        "(3-pass bf16x3, the recommended serving mode - hypothesis-"
+        "identical on the eval models), or bf16 (one MXU pass; UNSAFE "
+        "for floored-variance models - verify WER per model, see "
+        "ops/gmm.py GEMM_PRECISIONS and evals/run_pallas_e2e.py)"),
+    Arg("samprate", float, 16000.0, "Sampling rate"),
+]
+
+_GRAMMARS = ("fsg", "jsgf", "srgs", "cfg", "allphone")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class Decoder:
+    """Speech decoder over one acoustic model + the N-gram search."""
+
+    def __init__(self, config: Optional[Config] = None, *,
+                 device: torch.device | str, **kwargs):
+        cfg = (config.copy() if config else
+               Config(DECODER_ARGS, FE_ARGS, FEAT_ARGS, NGRAM_ARGS))
+        cfg.register(DECODER_ARGS).register(FE_ARGS).register(FEAT_ARGS)
+        cfg.register(NGRAM_ARGS)
+        cfg.update(**kwargs)
+        self.config = cfg
+        self.device = torch.device(device)
+        hmm = str(cfg["hmm"])
+
+        def model_file(key: str, name: str) -> str:
+            v = str(cfg[key])
+            if v:
+                return v
+            p = os.path.join(hmm, name)
+            return p if hmm and os.path.exists(p) else ""
+
+        # feat.params layering (ps_init_defaults pocketsphinx.c:98-156).
+        fparams = model_file("featparams", "feat.params")
+        if fparams:
+            cfg.update_from_file(fparams)
+            cfg.update(**kwargs)  # explicit args win over feat.params
+
+        mdef_path = model_file("mdef", "mdef")
+        if not mdef_path:
+            raise ValueError("must specify -hmm or -mdef")
+        self.mdef = Mdef.read(mdef_path)
+        self.tmat = TransitionMatrices.read(model_file("tmat",
+                                                       "transition_matrices"))
+        gauden = read_gauden(model_file("mean", "means"),
+                             model_file("var", "variances"),
+                             varfloor=float(cfg["varfloor"]))
+
+        if str(cfg["mllr"]):
+            # ps_mllr / acmod_update_mllr capability: adapt means on load.
+            MllrTransform.read(str(cfg["mllr"])).apply(gauden)
+
+        self.fe = Frontend(cfg, device=self.device)
+        self.fp = FeatPipeline(cfg, device=self.device)
+        self.scorer = self._init_scorer(cfg, gauden, model_file)
+        if str(cfg["lambda"]):
+            # Decode-time CD/CI interpolation (sphinx3 interp_all).
+            lpath = str(cfg["lambda"])
+            lam = (np.load(lpath) if lpath.endswith(".npy") else
+                   np.loadtxt(lpath, dtype=np.float32, ndmin=1))
+            self.scorer = InterpolatedScorer(
+                self.scorer, self.mdef.cd2cisen, self.mdef.n_ci_sen, lam,
+                device=self.device)
+
+        fdict = model_file("fdict", "noisedict")
+        self.dict = Dictionary.read(str(cfg["dict"]) or None, self.mdef,
+                                    filler_path=fdict or None)
+
+        # Search module (ps_reinit search selection :257-280).
+        self.search = None
+        for key in _GRAMMARS:
+            if str(cfg[key]):
+                raise _not_ported(f"-{key} (grammar and allphone searches)",
+                                  "A12")
+        if str(cfg["lmctl"]):
+            self.lmset = NgramModelSet.read_lmctl(str(cfg["lmctl"]))
+            if str(cfg["lmname"]):
+                self.lmset.select(str(cfg["lmname"]))
+            self.search = self._ngram_search(self.lmset.lm())
+        elif str(cfg["lm"]):
+            self.search = self._ngram_search(NgramModel.read(str(cfg["lm"])))
+
+        self._raw_chunks: List = []
+        self._hyp: Optional[Hypothesis] = None
+        self._in_utt = False
+
+    def _ngram_search(self, lm: NgramModel) -> NgramSearch:
+        return NgramSearch(lm, self.dict, self.mdef, self.tmat, self.scorer,
+                           config=self.config, device=self.device)
+
+    # ------------------------------------------------------------------
+    def _init_scorer(self, cfg, gauden, model_file):
+        sendump = model_file("sendump", "sendump")
+        mixw_path = model_file("mixw", "mixture_weights")
+        slices = self.fp.stream_slices()
+        dev = self.device
+        if sendump:
+            if bool(cfg["parity"]):
+                raw, meta = read_sendump(sendump, return_raw=True)
+                return PsParityScorer(gauden, raw, slices,
+                                      topn=int(cfg["topn"]),
+                                      wrap_uint8=meta["n_bits"] == 4,
+                                      device=dev)
+            lnw = read_sendump(sendump)
+            return SemiContinuousScorer(gauden, lnw, slices,
+                                        topn=int(cfg["topn"]), device=dev)
+        if not mixw_path:
+            raise ValueError("model has neither sendump nor mixture_weights")
+        lnw = read_mixture_weights(mixw_path)
+        if gauden.n_mgau == 1:
+            return SemiContinuousScorer(gauden, lnw, slices,
+                                        topn=int(cfg["topn"]), device=dev)
+        if gauden.n_feat == 1 and gauden.n_mgau == lnw.shape[-1]:
+            # One codebook per senone: continuous.
+            return ContinuousScorer(gauden, lnw[0].T,
+                                    precision=str(cfg["gmmprec"]), device=dev)
+        if gauden.n_mgau == self.mdef.n_ciphone:
+            sen2cb = np.asarray(self.mdef.sen2cimap, np.int32)
+            return PTMScorer(gauden, lnw[0].T, sen2cb, device=dev)
+        raise ValueError(
+            f"cannot infer scorer type: n_mgau={gauden.n_mgau}, "
+            f"n_feat={gauden.n_feat}, n_sen={lnw.shape[-1]}")
+
+    # ------------------------------------------------------------------
+    # Utterance API (ps_start_utt / ps_process_raw / ps_end_utt).
+    def start_utt(self, streaming: bool = False) -> None:
+        """Begin an utterance; audio and cepstra are buffered until
+        `end_utt`, which decodes the whole utterance."""
+        if self._in_utt:
+            raise RuntimeError("utterance already started")
+        if streaming:
+            raise _not_ported("streaming decode", "A11")
+        self._raw_chunks = []
+        self._hyp = None
+        self._in_utt = True
+
+    def process_raw(self, data: np.ndarray) -> None:
+        if not self._in_utt:
+            raise RuntimeError("call start_utt first")
+        self._raw_chunks.append(np.asarray(data, np.float32).ravel())
+
+    def process_cep(self, cep: np.ndarray) -> None:
+        if not self._in_utt:
+            raise RuntimeError("call start_utt first")
+        self._raw_chunks.append(("cep", np.asarray(cep, np.float32)))
+
+    def abort_utt(self) -> None:
+        """Discard any utterance in progress and reset to IDLE; safe to call
+        in any state."""
+        self._in_utt = False
+        self._raw_chunks = []
+        self._hyp = None
+
+    def end_utt(self) -> Hypothesis:
+        if not self._in_utt:
+            raise RuntimeError("no utterance in progress")
+        self._in_utt = False
+        ceps = []
+        raws = [c for c in self._raw_chunks if not isinstance(c, tuple)]
+        if raws:
+            samples = np.concatenate(raws) if len(raws) > 1 else raws[0]
+            ceps.append(self.fe.process(samples))
+        ceps.extend(c[1] for c in self._raw_chunks if isinstance(c, tuple))
+        if not ceps:
+            self._hyp = Hypothesis([], float("-inf"), [])
+            return self._hyp
+        cep = np.concatenate(ceps) if len(ceps) > 1 else ceps[0]
+        self._hyp = self.search.decode(self.fp.compute(cep))
+        return self._hyp
+
+    # ------------------------------------------------------------------
+    def decode_raw(self, path: str) -> Hypothesis:
+        """Decode a whole headerless 16-bit PCM file (ps_decode_raw)."""
+        with open(path, "rb") as fh:
+            data = np.frombuffer(fh.read(), np.int16)
+        self.start_utt()
+        self.process_raw(data.astype(np.float32))
+        return self.end_utt()
+
+    def decode_cep_file(self, path: str) -> Hypothesis:
+        self.start_utt()
+        self.process_cep(read_mfc(path))
+        return self.end_utt()
+
+    # Results (ps_get_hyp / ps_seg).
+    def hyp(self) -> Optional[Hypothesis]:
+        return self._hyp
+
+    def seg(self) -> List[Segment]:
+        return self._hyp.segments if self._hyp else []
+
+    def nbest(self, n: int = 10) -> List[Hypothesis]:
+        raise _not_ported("nbest", "A11")
+
+    def get_lattice(self):
+        raise _not_ported("get_lattice", "A11")
+
+    def get_prob(self) -> float:
+        raise _not_ported("get_prob", "A11")
+
+    def add_word(self, word: str, phones: List[str]) -> int:
+        """Runtime word addition (ps_add_word).  Takes effect at the next
+        search (re)initialization."""
+        return self.dict.add_word(word, phones)
+
+    def set_lm(self, name: str) -> None:
+        """Switch to a named LM from -lmctl; rebuilds the search module."""
+        self.search = self._ngram_search(self.lmset.select(name))
+
+    def align(self, feats_or_raw: np.ndarray, words: List[str],
+              raw: bool = False):
+        raise _not_ported("forced alignment", "A12")

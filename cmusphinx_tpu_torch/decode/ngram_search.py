@@ -484,7 +484,10 @@ class NgramSearch(nn.Module):
 
     def decode(self, feats: np.ndarray,
                bestpath: Optional[bool] = None) -> Hypothesis:
-        """feats [T, D] -> best hypothesis (a batch of one)."""
+        """feats [T, D] -> best hypothesis (a batch of one).  An empty
+        utterance gives the empty hypothesis with score -inf."""
+        if int(feats.shape[0]) == 0:
+            return Hypothesis([], float("-inf"), [])
         return self.decode_batch([feats], bestpath)[0]
 
     @torch.inference_mode()

@@ -1,7 +1,8 @@
 """Dynamic features: cepstra -> feature vectors (batch path).
 
 Port of `cmusphinx_tpu/frontend/feat.py` (`FEAT_ARGS`, the feature types,
-`stream_slices`, `_padded_kernel`, `_dynamic`).  Utterances arrive
+`stream_slices`, `_padded_kernel`, `_dynamic`, `compute`,
+`compute_batch`).  Utterances arrive
 zero-padded to a common length with their true lengths, and the batch is
 an explicit leading dimension.  Matches feat_s2mfc2feat_block_utt with
 beginutt = endutt = 1: replicate-pad by the window first, then CMN over the
@@ -220,6 +221,18 @@ class FeatPipeline(nn.Module):
             return torch.cat([cep[..., 1:], d[..., 1:], ld[..., 1:], pow_,
                               dd[..., 1:]], -1)
         raise ValueError(self.feat_type)
+
+    @torch.inference_mode()
+    def compute(self, cep: np.ndarray, batch_cmn: bool = True) -> np.ndarray:
+        """Single-utterance batch path: [T, ncep] -> [T, D] (numpy).
+        `batch_cmn=False` skips `current` CMN (prior CMN still applies)."""
+        cep = np.asarray(cep, np.float32)
+        T = cep.shape[0]
+        if T == 0:
+            return np.zeros((0, self.out_dim), np.float32)
+        out = self._padded_kernel(torch.as_tensor(cep[None]).to(self.device),
+                                  torch.tensor([T]), batch_cmn)
+        return out[0].cpu().numpy()
 
     def compute_batch(self, ceps) -> List[np.ndarray]:
         """List of [T_i, ncep] -> list of [T_i, D] (one batched call)."""

@@ -121,14 +121,26 @@ def _densities(x, lin2, quad2, const1, precision):
     return const1 + x @ lin2.T - (x * x) @ quad2.T
 
 
+def mask_topn(d: torch.Tensor, topn: int) -> torch.Tensor:
+    """Keep every value >= the topn-th largest of its last axis (so ties
+    past N survive, reference `_mask_topn`), masking the rest to -inf."""
+    if topn <= 0 or topn >= d.shape[-1]:
+        return d
+    thresh = d.topk(topn, dim=-1).values[..., -1:]
+    return torch.where(d >= thresh, d, float("-inf"))
+
+
 def fused_mixture_scores_ref(x: torch.Tensor, lin: torch.Tensor,
                              quad: torch.Tensor, const: torch.Tensor,
-                             precision: str = "highest") -> torch.Tensor:
+                             precision: str = "highest",
+                             topn: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: `const + x@lin - (x*x)@quad`,
     reshaped to [T, S, K], then `torch.logsumexp` over K.  In bf16 mode the
     bf16 operands are upcast to f32 before the product (a bf16 x bf16
     product is exact in f32).  Frames are taken in chunks to bound the
-    [T, S*K] density matrix's memory."""
+    [T, S*K] density matrix's memory.  `topn > 0` keeps each senone's top-N
+    densities (`mask_topn`) before the log-sum-exp; the kernel has no such
+    option."""
     if precision not in _MODE:
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
@@ -140,7 +152,8 @@ def fused_mixture_scores_ref(x: torch.Tensor, lin: torch.Tensor,
     rows = max(1, _REF_CHUNK_BYTES // (S * K * 4))
     for lo in range(0, T, rows):
         ll = _densities(x[lo: lo + rows], lin2, quad2, const1, precision)
-        out[lo: lo + rows] = torch.logsumexp(ll.view(-1, S, K), dim=-1)
+        out[lo: lo + rows] = torch.logsumexp(mask_topn(ll.view(-1, S, K), topn),
+                                             dim=-1)
     return out
 
 

@@ -1,5 +1,14 @@
-"""The port on the GPU: kernel K1 against its plain version, and a
-one-utterance decode through it.  Skips where there is no CUDA device.
+"""The port on the GPU: kernel K1 against its plain version, a
+one-utterance decode through it, the other scorers, the frontend and the
+Decoder on the card against their CPU runs.  Skips where there is no CUDA
+device.
+
+Tolerances against the CPU run: `PsParityScorer`'s epilogue bit-exact on
+the same int32 densities, and the whole scorer bit-exact on an
+integer-exact model with planted ties; its densities and the float
+scorers within D * 2^-22 * M (plus 1e-5 relative for exp/log); the
+frontend within 1e-4 per log-mel value carried through |dct| and the
+lifter (as tests/test_torch_fe.py states it).
 
 On a machine with the card (which has no JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -13,7 +22,9 @@ from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch._host import GaussianParams
 from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline
-from cmusphinx_tpu_torch.ops import ContinuousScorer
+from cmusphinx_tpu_torch.ops import (ContinuousScorer, InterpolatedScorer,
+                                     PsParityScorer, PTMScorer,
+                                     SemiContinuousScorer)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 
@@ -73,3 +84,144 @@ def test_one_utterance_decode_through_k1(cuda):
     sc.kernel = False
     plain = s.decode_batch_cep(fx.ceps[:1], fp)[0]
     assert plain.words == hyp.words
+
+
+# ---- the semi-continuous scorers, PTM, interpolation, frontend, Decoder --
+
+def _semi_model(rng, lens, K, integer):
+    F, L = len(lens), max(lens)
+    means = np.zeros((1, F, K, L), np.float32)
+    var = np.ones((1, F, K, L), np.float32)
+    for f, ln in enumerate(lens):
+        means[0, f, :, :ln] = (rng.randint(-2, 3, (K, ln)) if integer
+                               else rng.randn(K, ln) * 1.5)
+        var[0, f, :, :ln] = rng.uniform(0.5, 2.0, (K, ln))
+        for k in (3, 7, 11):                   # planted exact ties
+            means[0, f, k], var[0, f, k] = means[0, f, 0], var[0, f, 0]
+    prec = (0.5 / var).astype(np.float32)
+    lrd = np.zeros((1, F, K), np.float32)
+    for f, ln in enumerate(lens):
+        prec[0, f, :, ln:] = 0.0
+        lrd[0, f] = -0.5 * (np.log(var[0, f, :, :ln]).sum(-1)
+                            + ln * np.log(2 * np.pi))
+    g = GaussianParams(means=means, var=var, prec=prec, lrd=lrd,
+                       veclen=list(lens), n_mgau=1, n_feat=F, n_density=K)
+    sl, pos = [], 0
+    for ln in lens:
+        sl.append(np.arange(pos, pos + ln))
+        pos += ln
+    T = 300
+    parts = []
+    for f, ln in enumerate(lens):
+        k = rng.randint(K, size=T)
+        k[:20] = 0
+        m = means[0, f, k, :ln]
+        parts.append(m + (rng.randint(-1, 2, (T, ln)) if integer
+                          else rng.randn(T, ln) * 0.7))
+    return g, sl, np.concatenate(parts, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("lens,wrap", [([13, 13, 13], False),
+                                       ([12, 24, 3, 12], True)])
+def test_psparity_on_card_matches_cpu(cuda, lens, wrap):
+    rng = np.random.RandomState(1)
+    for integer in (True, False):
+        g, sl, x = _semi_model(rng, lens, 64, integer)
+        raw = rng.randint(0, 256, (len(lens), 64, 500)).astype(np.uint8)
+        cpu = PsParityScorer(g, raw, sl, topn=4, wrap_uint8=wrap, device="cpu")
+        gpu = PsParityScorer(g, raw, sl, topn=4, wrap_uint8=wrap, device=cuda)
+        xc = torch.as_tensor(x)
+        d_gpu = gpu.int_densities(xc.to(cuda))
+        d_cpu = cpu.int_densities(xc)
+        # Stage (b): bit-exact on the same int32 densities, ties included.
+        got = gpu.epilogue(d_gpu).cpu()
+        assert torch.equal(got, cpu.epilogue([d.cpu() for d in d_gpu]))
+        if integer:
+            for a, b in zip(d_gpu, d_cpu):
+                assert torch.equal(a.cpu(), b)
+            assert torch.equal(got, cpu.score(xc))
+        else:
+            for a, b in zip(d_gpu, d_cpu):
+                assert int((a.cpu().long() - b.long()).abs().max()) <= 2
+
+
+def test_float_scorers_on_card_match_cpu(cuda):
+    rng = np.random.RandomState(2)
+    g, sl, x = _semi_model(rng, [13, 13, 13], 64, integer=False)
+    lnw = np.log(rng.dirichlet(np.ones(64), size=(3, 200))
+                 ).transpose(0, 2, 1).astype(np.float32)
+    xc = torch.as_tensor(x)
+    for topn in (0, 4):
+        a = SemiContinuousScorer(g, lnw, sl, topn=topn, device=cuda)
+        b = SemiContinuousScorer(g, lnw, sl, topn=topn, device="cpu")
+        got, want = a.score(xc.to(cuda)).cpu(), b.score(xc)
+        assert bool(((got - want).abs() <= 1e-3 + 1e-5 * want.abs()).all())
+    # PTM, continuous top-N and CD/CI interpolation on a small model.
+    C, K, D, S = 6, 8, 13, 40
+    means = rng.randn(C, 1, K, D).astype(np.float32)
+    var = (0.3 + rng.rand(C, 1, K, D)).astype(np.float32)
+    gp = GaussianParams(means=means, var=var, prec=(0.5 / var).astype(np.float32),
+                        lrd=(-0.5 * (np.log(var).sum(-1) + D * np.log(2 * np.pi))
+                             ).astype(np.float32),
+                        veclen=[D], n_mgau=C, n_feat=1, n_density=K)
+    lnw = np.log(rng.dirichlet(np.ones(K), size=S)).astype(np.float32)
+    sen2cb = rng.randint(C, size=S)
+    xp = torch.as_tensor((means[rng.randint(C, size=90), 0, 0]
+                          + rng.randn(90, D) * 0.5).astype(np.float32))
+    lam = rng.rand(S).astype(np.float32)
+    cd2ci = np.r_[np.arange(12), rng.randint(12, size=S - 12)]
+    for dev_scorers in [
+            lambda dev: PTMScorer(gp, lnw, sen2cb, topn=2, device=dev),
+            lambda dev: InterpolatedScorer(
+                PTMScorer(gp, lnw, sen2cb, device=dev), cd2ci, 12, lam,
+                device=dev)]:
+        got = dev_scorers(cuda).score(xp.to(cuda)).cpu()
+        want = dev_scorers("cpu").score(xp)
+        assert bool(((got - want).abs() <= 1e-3 + 1e-5 * want.abs()).all())
+    gc = GaussianParams(means=means[:1].repeat(S, 0), var=var[:1].repeat(S, 0),
+                        prec=(0.5 / var[:1].repeat(S, 0)).astype(np.float32),
+                        lrd=np.zeros((S, 1, K), np.float32), veclen=[D],
+                        n_mgau=S, n_feat=1, n_density=K)
+    before = fused_mixture_scores.launches
+    got = ContinuousScorer(gc, lnw, topn=3, device=cuda).score(xp.to(cuda))
+    assert fused_mixture_scores.launches == before     # top-N: plain path
+    want = ContinuousScorer(gc, lnw, topn=3, device="cpu").score(xp)
+    assert bool(((got.cpu() - want).abs() <= 1e-3 + 1e-5 * want.abs()).all())
+
+
+def test_frontend_on_card_matches_cpu(cuda):
+    from cmusphinx_tpu_torch.frontend import Frontend
+    rng = np.random.RandomState(3)
+    t = np.arange(9600) / 16000
+    sig = (3000 * np.sin(2 * np.pi * 440 * t) + rng.randn(9600) * 300
+           ).astype(np.float32)
+    for params in ({}, {"transform": "dct", "nfilt": 20, "lowerf": 1,
+                        "upperf": 4000},
+                   {"transform": "htk", "lifter": 22}, {"logspec": True}):
+        cpu = Frontend(device="cpu", **params)
+        gpu = Frontend(device=cuda, **params)
+        want, got = cpu.process(sig), gpu.process(sig)
+        b = np.full(cpu.nfilt, 1e-4)
+        if not cpu.logspec:
+            b = b @ np.abs(cpu.dct.numpy().astype(np.float64))
+            if cpu.lifter is not None:
+                b = b * np.abs(cpu.lifter.numpy())
+        assert got.shape == want.shape
+        assert np.all(np.abs(got.astype(np.float64) - want) <= b)
+
+
+@pytest.mark.parametrize("model", ["cont", "semi"])
+def test_decoder_on_card_matches_cpu(cuda, model, tmp_path):
+    from cmusphinx_tpu_torch._host import write_mfc
+    from cmusphinx_tpu_torch.api import Decoder
+    fx = fixture.build(0, small=True, model=model)
+    kw = fixture.write_model_dir(fx, str(tmp_path))
+    gpu, cpu = Decoder(device=cuda, **kw), Decoder(device="cpu", **kw)
+    before = fused_mixture_scores.launches
+    for i, c in enumerate(fx.ceps):
+        path = str(tmp_path / f"u{i}.mfc")
+        write_mfc(path, c)
+        h = gpu.decode_cep_file(path)
+        assert h.words == cpu.decode_cep_file(path).words == fx.transcripts[i]
+    launched = fused_mixture_scores.launches - before
+    assert (launched > 0) == (model == "cont")

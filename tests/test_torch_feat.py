@@ -79,3 +79,24 @@ def test_cmn_modes_match_reference(cmn, varnorm):
 def test_unknown_feature_type_raises():
     with pytest.raises(ValueError):
         FeatPipeline(device="cpu", feat="nope")
+
+
+@pytest.mark.parametrize("params", [
+    {"feat": "1s_c_d_dd", "svspec": "0-12/13-25/26-38"},
+    {"feat": "s2_4x", "agc": "max"},
+    {"feat": "1s_c_d_dd", "cmn": "prior", "cmninit": "56,-3,1"},
+    {"feat": "1s_c_d_dd", "batch_cmn": False},
+], ids=["svspec", "s2_4x_agc", "prior_cmninit", "no_batch_cmn"])
+def test_compute_matches_reference(params):
+    params = dict(params)
+    batch_cmn = params.pop("batch_cmn", True)
+    jfp = JaxFeat(Config(FEAT_ARGS), **params)
+    tfp = FeatPipeline(Config(FEAT_ARGS), device="cpu", **params)
+    for c in _ceps(9, lens=(1, 37, 250)):
+        want = np.asarray(jfp.compute(c, batch_cmn))
+        got = tfp.compute(c, batch_cmn)
+        assert got.shape == want.shape == (len(c), jfp.out_dim)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    empty = tfp.compute(np.zeros((0, 13), np.float32))
+    assert empty.shape == np.asarray(
+        jfp.compute(np.zeros((0, 13), np.float32))).shape == (0, jfp.out_dim)

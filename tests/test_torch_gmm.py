@@ -200,3 +200,107 @@ def test_convert_ngram_round_trip():
     direct = DeviceNgram(fx.lm, device="cpu")
     assert carried.V == direct.V == fx.lm.n_words
     assert torch.equal(carried.tg_dense, direct.tg_dense)
+
+
+# ---- top-N continuous scoring, PTM and CD/CI interpolation -----------
+# Same bounds as above: the plain f32 path against the reference within
+# D * 2^-22 * M.  Masking keeps every density >= the N-th largest, and the
+# log-sum-exp adds at most ~1e-6 relative.
+
+@pytest.mark.parametrize("topn", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["highest", "high"])
+def test_continuous_topn_matches_reference(mode, topn):
+    rng = np.random.RandomState(60 + topn)
+    S, K, D = 20, 4, 39
+    g, lnw, x = _gauden(rng, S, K, D)
+    # Planted tie: senone 0's first two Gaussians are identical.
+    for a in (g.means, g.var, g.prec):
+        a[0, 0, 1] = a[0, 0, 0]
+    g.lrd[0, 0, 1] = g.lrd[0, 0, 0]
+    want = np.asarray(JaxScorer(g, lnw, topn=topn, use_pallas=False,
+                                precision=mode).score(jnp.asarray(x)))
+    sc = ContinuousScorer(g, lnw, topn=topn, precision=mode, device="cpu")
+    got = sc.score(torch.as_tensor(x)).numpy()
+    lin, quad, const = _params(g, lnw)
+    M = _magnitude(x, lin, quad, const)
+    bound = D * 2.0 ** -22 + (MODE_BOUND[mode] if mode == "high" else 0.0)
+    _within(got, want, bound * M + 1e-6 * np.abs(want))
+    before = fused_mixture_scores.launches
+    full = ContinuousScorer(g, lnw, precision=mode, device="cpu")
+    assert np.all(got <= full.score(torch.as_tensor(x)).numpy() + 1e-5)
+    assert fused_mixture_scores.launches == before
+
+
+def _ptm_case(rng, C=5, K=4, S=23, D=13, T=30):
+    means = rng.randn(C, 1, K, D).astype(np.float32)
+    var = (0.3 + rng.rand(C, 1, K, D)).astype(np.float32)
+    g = GaussianParams(means=means, var=var,
+                       prec=(1.0 / (2.0 * var)).astype(np.float32),
+                       lrd=(-0.5 * (np.log(var).sum(-1) + D * np.log(2 * np.pi))
+                            ).astype(np.float32),
+                       veclen=[D], n_mgau=C, n_feat=1, n_density=K)
+    lnw = np.log(rng.dirichlet(np.ones(K), size=S)).astype(np.float32)
+    sen2cb = rng.randint(C, size=S).astype(np.int32)
+    x = (means[rng.randint(C, size=T), 0, 0] + rng.randn(T, D) * 0.5
+         ).astype(np.float32)
+    return g, lnw, sen2cb, x
+
+
+@pytest.mark.parametrize("topn", [0, 2])
+def test_ptm_matches_reference(topn):
+    from cmusphinx_tpu.ops.gmm import PTMScorer as JaxPTM
+    from cmusphinx_tpu_torch.ops.gmm import PTMScorer
+    rng = np.random.RandomState(70 + topn)
+    g, lnw, sen2cb, x = _ptm_case(rng)
+    want = np.asarray(JaxPTM(g, lnw, sen2cb, topn=topn).score(jnp.asarray(x)))
+    sc = PTMScorer(g, lnw, sen2cb, topn=topn, device="cpu")
+    got = sc.score(torch.as_tensor(x)).numpy()
+    assert got.shape == (30, 23)
+    C, K, D = sc.lin.shape
+    lin = sc.lin.numpy()[sen2cb]                    # per senone [S, K, D]
+    quad = sc.quad.numpy()[sen2cb]
+    const = sc.const.numpy()[sen2cb] + lnw
+    M = _magnitude(x, lin, quad, const)
+    _within(got, want, D * 2.0 ** -22 * M + 1e-6 * np.abs(want))
+    # The batch is a leading dimension.
+    xb = torch.as_tensor(np.stack([x, x[::-1].copy()]))
+    np.testing.assert_array_equal(sc.score(xb)[0].numpy(), got)
+
+
+def test_convert_ptm_round_trip():
+    from cmusphinx_tpu.ops.gmm import PTMScorer as JaxPTM
+    from cmusphinx_tpu_torch.ops.gmm import PTMScorer
+    rng = np.random.RandomState(72)
+    g, lnw, sen2cb, x = _ptm_case(rng)
+    jsc = JaxPTM(g, lnw, sen2cb)
+    kw = convert.ptm_from_jax(np.asarray(jsc.lin), np.asarray(jsc.quad),
+                              np.asarray(jsc.const), np.asarray(jsc.lnw),
+                              np.asarray(jsc.sen2cb), jsc.n_cb, jsc.n_density)
+    carried = PTMScorer.from_params(**kw, device="cpu")
+    direct = PTMScorer(g, lnw, sen2cb, device="cpu")
+    for name, buf in direct.state_dict().items():
+        assert torch.equal(buf, carried.state_dict()[name]), name
+
+
+@pytest.mark.parametrize("lam", [0.7, "per_senone", 1.0])
+def test_interpolated_matches_reference(lam):
+    from cmusphinx_tpu.ops.gmm import InterpolatedScorer as JaxInterp
+    from cmusphinx_tpu_torch.ops.gmm import InterpolatedScorer
+    rng = np.random.RandomState(80)
+    S, K, D, n_ci = 24, 4, 13, 6
+    g, lnw, x = _gauden(rng, S, K, D)
+    cd2ci = np.r_[np.arange(n_ci), rng.randint(n_ci, size=S - n_ci - 1), -1]
+    if lam == "per_senone":
+        lam = rng.rand(S).astype(np.float32)
+    inner_j = JaxScorer(g, lnw, use_pallas=False)
+    inner_t = ContinuousScorer(g, lnw, device="cpu")
+    want = np.asarray(JaxInterp(inner_j, cd2ci, n_ci, lam).score(
+        jnp.asarray(x)))
+    sc = InterpolatedScorer(inner_t, cd2ci, n_ci, lam, device="cpu")
+    got = sc.score(torch.as_tensor(x)).numpy()
+    inner = inner_t.score(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got[:, :n_ci], inner[:, :n_ci])
+    lin, quad, const = _params(g, lnw)
+    M = _magnitude(x, lin, quad, const)
+    bound = D * 2.0 ** -22 * np.maximum(M, M[:, cd2ci]) + 1e-6 * np.abs(want)
+    _within(got, want, bound)

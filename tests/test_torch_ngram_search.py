@@ -136,3 +136,46 @@ def test_unported_options_raise(fx, port):
                     pl_window=3)
     with pytest.raises(NotImplementedError):
         s.decode_batch_cep(fx.ceps, fp, bestpath=True)
+
+
+def test_decode_empty_utterance_matches_reference(decoded, port):
+    s, fp = port
+    feats = np.zeros((0, 39), np.float32)
+    want = decoded["js"].decode(feats)
+    got = s.decode(feats)
+    assert (got.words, got.score, got.segments) == \
+        (want.words, want.score, want.segments) == ([], float("-inf"), [])
+
+
+@pytest.mark.parametrize("model", ["semi", "s2_4x"])
+def test_semicontinuous_slice_matches_reference(model):
+    """The slice with the bit-faithful semi-continuous scorer: 8-bit
+    weights over 3x13 svspec streams, and 4-bit weights over s2_4x.  Senone
+    scores agree bit for bit on these inputs (see test_torch_semicont), so
+    integer tapes and hypotheses are equal and float tapes within rtol
+    1e-5."""
+    from cmusphinx_tpu.ops.gmm import PsParityScorer as JaxPs
+    from cmusphinx_tpu_torch.ops import PsParityScorer
+    fx = fixture.build(0, small=True, model=model)
+    raw, meta = fixture.sendump_bytes(fx)
+    sl = fx.stream_slices()
+    wrap = meta["n_bits"] == 4
+    assert wrap == (model == "s2_4x")
+    js = JaxSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                   JaxPs(fx.gauden, raw, sl, topn=4, wrap_uint8=wrap))
+    jhyps = js.decode_batch_cep(fx.ceps, JaxFeat(fx.feat_config()))
+    s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                    PsParityScorer(fx.gauden, raw, sl, topn=4,
+                                   wrap_uint8=wrap, device="cpu"),
+                    device="cpu")
+    hyps = s.decode_batch_cep(fx.ceps, FeatPipeline(fx.feat_config(),
+                                                    device="cpu"))
+    E = js.E
+    for a, b in zip(s._last_batch[0], js._last_batch[0]):
+        a, b = a.numpy(), np.asarray(b)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+        else:
+            assert np.array_equal(a, b), _first_diff(a, b, E)
+    assert [h.words for h in hyps] == [h.words for h in jhyps]
+    assert [h.words for h in hyps] == fx.transcripts

@@ -35,6 +35,38 @@ def test_decodes_with_jax_blocked():
     assert "WORDS True" in r.stdout
 
 
+_DECODER_WITHOUT_JAX = r"""
+import sys, tempfile
+sys.modules["jax"] = None          # any import of jax now raises
+import numpy as np
+from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch._host import write_mfc
+from cmusphinx_tpu_torch.api import Decoder
+ok = []
+for model in ("cont", "semi"):
+    fx = fixture.build(0, small=True, model=model)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Decoder(device="cpu", **fixture.write_model_dir(fx, tmp))
+        write_mfc(tmp + "/u.mfc", fx.ceps[0])
+        ok.append(d.decode_cep_file(tmp + "/u.mfc").words == fx.transcripts[0])
+        np.zeros(4000, np.int16).tofile(tmp + "/s.raw")
+        d.decode_raw(tmp + "/s.raw")
+        ok.append(type(d.scorer).__name__)
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("DECODER", ok)
+"""
+
+
+def test_decoder_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _DECODER_WITHOUT_JAX], env=env,
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "DECODER [True, 'ContinuousScorer', True, 'PsParityScorer']" \
+        in r.stdout
+
+
 def test_no_source_file_imports_jax():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     files = sorted((ROOT / "cmusphinx_tpu_torch").rglob("*.py"))
