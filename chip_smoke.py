@@ -34,6 +34,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launched by the continuous model, and one decode_raw of seeded 16-bit
    PCM whose cepstra from the card's Frontend match the CPU Frontend's.
 
+8. large_vocab_tree: the LARGE continuous fixture at 20,000 words
+   (fixture.LARGE, 16 utterances) through decode_batch_cep under `auto`,
+   which must pick the prefix-tree lexicon, its exits scored by the hashed
+   LM backend and its senones by K1: channels, K1's launch count, WER, xRT
+   (median of 5 passes), peak memory, identical hypotheses in every pass,
+   and the counted batch held against the host CPU (`hold_against_cpu`):
+   utterance 0 decoded end to end there, and the search alone on the
+   card's senone scores, with integer tape values of the valid frames
+   equal, float values within rtol 1e-5, words and segments equal.
+9. large_vocab_static: the LARGE semi-continuous fixture cut to 5,000 words
+   with PsParityScorer under `auto`, which must pick the flat
+   composite-context graph (the static-senone step) with `score_rows`
+   entries; the same numbers, and the same CPU hold, its search part over
+   all 16 utterances of the batch.
+
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
 """
@@ -517,6 +532,155 @@ def phase_decoder(dev, fixtures) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+class CardScores(torch.nn.Module):
+    """A scorer that returns given senone scores [B, Tpad, S], cut to the
+    batch and frames it is asked for."""
+
+    def __init__(self, scores: torch.Tensor):
+        super().__init__()
+        self.scores = scores
+
+    def score(self, feats: torch.Tensor) -> torch.Tensor:
+        return self.scores[: feats.shape[0], : feats.shape[1]]
+
+
+def hold_against_cpu(search, fp, tapes, hyps, cpu_search, fx, cpu_fp,
+                     n: int) -> dict:
+    """The counted batch decode on the card (`tapes` [B, Tpad*E, ...] on the
+    host, `hyps`) held against the host CPU: integer tape values equal and
+    float values within rtol 1e-5 over each utterance's valid frames (all
+    the backtrace reads), words and segments equal.
+
+    - `e2e`: utterance 0 decoded end to end on the CPU, with its own
+      features and scorer, against row 0 of the batch.
+    - `search`: the first n utterances of the batch through the CPU search
+      fed the card's senone scores, which holds the search alone with every
+      live slot of the batch.  The scorers are held card against CPU in
+      their own phases; how many of these scores the CPU scorer gives
+      otherwise is reported, not held."""
+    E = search.E
+    out = {}
+
+    def segs(h):
+        return [(s.word, s.start_frame, s.end_frame) for s in h.segments]
+
+    def check(name, want):
+        cpu_tapes = [t.numpy() for t in cpu_search._last_batch[0]]
+        int_diff, rel = 0, 0.0
+        for i, c in enumerate(fx.ceps[:len(want)]):
+            for x, y in zip(tapes, cpu_tapes):
+                x, y = x[i, :len(c) * E], y[i, :len(c) * E]
+                if x.dtype.kind == "f":
+                    rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(
+                        np.abs(y), 1e-30))))
+                else:
+                    int_diff += int((x != y).sum())
+        same = all(a.words == b.words and segs(a) == segs(b)
+                   for a, b in zip(hyps, want))
+        out.update({f"{name}_utterances": len(want),
+                    f"{name}_int_values_differing": int_diff,
+                    f"{name}_float_max_rel_diff": rel,
+                    f"{name}_hyps_equal": same})
+        if int_diff or rel > 1e-5 or not same:
+            raise AssertionError(f"card and CPU decode differently: {out}")
+
+    check("e2e", cpu_search.decode_batch_cep(fx.ceps[:1], cpu_fp))
+
+    c, T, Ts = search._pad(fx.ceps)
+    with torch.inference_mode():
+        feats = fp._padded_kernel(c, T, True)
+        scores = search.scorer.score(feats).cpu()
+    feats = feats.cpu()
+    own = cpu_search.scorer
+    cpu_search.scorer = CardScores(scores)
+    try:
+        check("search", cpu_search.decode_batch(
+            [feats[i, :Ts[i]].numpy() for i in range(n)]))
+    finally:
+        cpu_search.scorer = own
+    valid = torch.arange(feats.shape[1])[None, :] < T[:n, None].cpu()
+    with torch.inference_mode():
+        differ = own.score(feats[:n]) != scores[:n]
+    out["cpu_scores_differing"] = int((differ & valid[..., None]).sum())
+    out["scores_compared"] = int(valid.sum()) * scores.shape[2]
+    return out
+
+
+def phase_large_vocab(dev, card: str, name: str, fx, make_scorer,
+                      want_lex: str, want_lm: str, hold_utts: int) -> dict:
+    t0 = time.perf_counter()
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, make_scorer(dev),
+                         device=dev)
+    setup_s = time.perf_counter() - t0
+    g = search.graph
+    if (g.rc_mode, g.lc_mode, g.lex_mode) != ("composite", "composite",
+                                              want_lex):
+        raise AssertionError(f"{name}: auto picked {g.rc_mode}/{g.lc_mode}/"
+                             f"{g.lex_mode}")
+
+    # The main path, once, counted.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mixture_scores.launches = 0
+    search.dlm.calls.clear()
+    t0 = time.perf_counter()
+    hyps = search.decode_batch_cep(fx.ceps, fp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fused_mixture_scores.launches
+    lm_calls = dict(search.dlm.calls)
+    peak = peak_mb()
+    if lm_calls.get(want_lm, 0) < 1:
+        raise AssertionError(f"{name}: LM answered by {lm_calls}, not "
+                             f"{want_lm}")
+    tapes = [t.cpu().numpy() for t in search._last_batch[0]]
+    frames = int(tapes[0].shape[1] // search.E)
+
+    walls = []
+    for _ in range(DECODE_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = search.decode_batch_cep(fx.ceps, fp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if [h.words for h in again] != [h.words for h in hyps]:
+            raise AssertionError(f"{name}: repeated decode changed its "
+                                 f"hypotheses")
+    for h in hyps:
+        if not (h.segments and np.isfinite(h.score)):
+            raise AssertionError(f"{name}: empty or non-finite hypothesis")
+
+    t0 = time.perf_counter()
+    cpu_search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                             make_scorer("cpu"), device="cpu")
+    hold = hold_against_cpu(search, fp, tapes, hyps, cpu_search, fx,
+                            FeatPipeline(fx.feat_config(), device="cpu"),
+                            hold_utts)
+    hold["cpu_hold_s"] = time.perf_counter() - t0
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, hyps))
+    n_ref = sum(len(r) for r in fx.transcripts)
+    med = statistics.median(walls)
+    out = {"phase": name, "card": card, "model": fx.model,
+           "S": fx.size.n_sen, "words": search.vocab.n_word,
+           "lm_words": fx.lm.n_words, "bigrams": len(fx.lm.bg_wid),
+           "trigrams": len(fx.lm.tg_wid),
+           "graph": f"{g.rc_mode}/{g.lc_mode}/{g.lex_mode}",
+           "channels": g.n_chan, "lm_backend_calls": lm_calls,
+           "utterances": len(fx.ceps), "frames_padded": frames,
+           "audio_s": fx.audio_seconds, "setup_s": setup_s,
+           "first_decode_s": first_s, "decode_s": walls,
+           "median_decode_s": med, "xRT": fx.audio_seconds / med,
+           "k1_launches": launches, "peak_mb": peak,
+           "hyps_identical_across_passes": True,
+           "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref,
+           **hold}
+    emit(out)
+    return out
+
+
 def main() -> int:
     info = phase_device()
     dev = torch.device("cuda:0")
@@ -530,12 +694,30 @@ def main() -> int:
     phase_semicont_scorer(dev, semi)
     phase_semicont_slice(dev, semi)
     dec = phase_decoder(dev, {"cont": cont, "semi": semi})
+    card = info["nvidia_smi"]
+    large = fixture.build(SEED, size=fixture.LARGE)
+    tree = phase_large_vocab(
+        dev, card, "large_vocab_tree", large,
+        lambda d: ContinuousScorer(large.gauden, large.ln_mixw, device=d),
+        "tree", "hashed", hold_utts=1)
+    if tree["k1_launches"] < 1:
+        raise AssertionError("the tree decode did not launch K1")
+    del large
+    semi5k = fixture.build(SEED, model="semi", size=fixture.LARGE_5K)
+    raw, meta = fixture.sendump_bytes(semi5k)
+    phase_large_vocab(
+        dev, card, "large_vocab_static", semi5k,
+        lambda d: PsParityScorer(semi5k.gauden, raw, semi5k.stream_slices(),
+                                 topn=TOPN, wrap_uint8=meta["n_bits"] == 4,
+                                 device=d),
+        "flat", "rows", hold_utts=len(semi5k.ceps))
     main_mode = k1["highest"]
     emit({"kernels": [{
         "name": "fused_gmm", "route": "cuda",
         "source": "cmusphinx_tpu_torch/csrc/fused_gmm.cu",
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
-        "launches": sl["k1_launches"] + dec["k1_launches"],
+        "launches": (sl["k1_launches"] + dec["k1_launches"]
+                     + tree["k1_launches"]),
         "max_abs_err": main_mode["max_abs_err"],
         "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"]}]})
     print(info["nvidia_smi"], flush=True)

@@ -1,27 +1,48 @@
-"""N-gram (trigram) decoder over a senone scorer: the flat-lexicon Viterbi
-search with exact right-context fan-out and multiplexed left contexts.
+"""N-gram (trigram) decoder over a senone scorer: flat and prefix-tree
+lexicons with exact or composite cross-word contexts.
 
 Port of `cmusphinx_tpu/decode/ngram_search.py` (`NGRAM_ARGS`, `NgramVocab`,
-`NgramSearch.__init__` for the flat fanout/mpx graph, `_xscores_all`,
-`_init_hmmc`, `_make_core`, `device_decode`, `device_backtrace`,
-`_hyp_from_chase`, `decode`, `decode_batch`, `decode_batch_cep`).  See the
-reference's module docstring for the search's semantics.  What differs in
-form, not in result:
+`topk2`, `NgramSearch.__init__`, `_xscores_all`, `_init_hmmc`, `_make_core`,
+`_expand_block_batched`, `_init_hmmc_static`, the static cores
+`_make_core_static` / `_make_core_static_batched`, `_setup_tree_bgla`,
+`_bgla_rows`, `_init_hmmc_tree`, the tree cores `_make_core_tree` (one copy)
+/ `_make_core_tree_batched`, `device_decode`, `device_decode_batched`,
+`device_backtrace`, `_hyp_from_chase`, `decode`, `decode_batch`,
+`decode_batch_cep`).  See the reference's docstrings for the search's
+semantics.  The graph picks one of three frame steps:
 
-- The batch is an explicit leading dimension (the reference vmaps).
+- `_step_mpx`: multiplexed left contexts (`lcmode=mpx`), fanout or
+  composite right contexts; the senone row of an entry channel rides the
+  Viterbi argmax as a payload, and so do the LM histories.
+- `_step_static`: composite left contexts and a flat lexicon; every
+  channel's senones are static, so they are expanded for a block of frames
+  at once (`_expand_block`); histories live in a per-slot side-table.
+- `_step_tree`: the prefix-tree lexicon (composite contexts); a unigram
+  lookahead smear inside the tree, an optional bigram correction at the
+  roots, the exact trigram for a shortlist of exits, and an 8-bit entry
+  age as the token payload.
+
+What differs in form, not in result:
+
+- The batch is an explicit leading dimension: every step's state is
+  `[B, C, S]` (the reference vmaps, or packs the batch by hand, and lays
+  the static and tree states out `[B, S, C]` or flat state-major for the
+  TPU's lanes); a single utterance is a batch of one.  One step serves
+  what the reference splits into its unbatched and batched cores.
 - The frame scan is a Python loop over frames of batched tensor ops.
-- Gathers are plain gathers; the reference's one-hot matmul gathers were a
-  TPU workaround.  Both select values exactly.
-- Top-E word exits use a stable descending sort, which keeps
-  `jax.lax.top_k`'s lowest-index-first order on ties.  The slot order on
-  the tape (slot = t·E + e) is therefore the reference's, slot for slot.
-- Payloads ride as int64 inside the loop; the tapes are stored as int32.
+- Gathers are plain gathers; the reference's one-hot matmul gathers, its
+  flat state-major layout and its 128-lane root padding were TPU devices.
+- Top-k is a stable descending sort, which keeps `jax.lax.top_k`'s
+  lowest-index-first order on ties; `topk2` keeps the reference's
+  two-stage tie rule.  The tape is the reference's, slot for slot.
+- Payloads ride as int64 (uint8 for the tree's entry age); the tapes are
+  stored as int32.
 
-Not ported yet (they raise NotImplementedError): composite contexts, the
-prefix-tree lexicon and the static-senone path (ROADMAP A9/A10), the
-phone-loop lookahead `pl_window`, bestpath rescoring and lattices, and
-streaming (A11).  `maxbatch` is accepted and has no effect: chunking a
-batch was a workaround for TPU compiler crashes.
+Not ported yet (they raise NotImplementedError): more than one lexicon
+tree copy (`nlextree > 1`, ROADMAP A10b), the phone-loop lookahead
+`pl_window` (A12), bestpath rescoring and lattices, and streaming (A11).
+`maxbatch` is accepted and has no effect: chunking a batch was a
+workaround for TPU compiler crashes.
 """
 
 from __future__ import annotations
@@ -36,7 +57,7 @@ from torch import nn
 from .._host import (Arg, Config, Dict2Pid, Dictionary, Mdef, NgramModel,
                      TransitionMatrices, build_word_graph)
 from ..models.ngram_device import DeviceNgram
-from ..ops.hmm import NEG_INF, hmm_enter, hmm_step
+from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from .results import Hypothesis, Segment
 
 NGRAM_ARGS = [
@@ -53,17 +74,25 @@ NGRAM_ARGS = [
     Arg("pl_weight", float, 3.0, "Weight on phone-loop lookahead penalties"),
     Arg("rcmode", str, "auto",
         "Cross-word right-context handling: 'fanout' (exact per-context "
-        "word-final channels) or 'composite' (not ported yet); 'auto' "
-        "picks fanout below 1000 words"),
+        "word-final channels) or 'composite' (one composite-triphone exit "
+        "channel per word); 'auto' picks fanout below 1000 words"),
     Arg("lcmode", str, "auto",
         "Cross-word left-context handling: 'mpx' (multiplexed senone "
-        "sequences riding the Viterbi argmax) or 'composite' (not ported "
-        "yet); 'auto' follows rcmode"),
+        "sequences riding the Viterbi argmax) or 'composite' (per-state max "
+        "over left contexts: static senones, the large-vocabulary path); "
+        "'auto' follows rcmode"),
     Arg("lexmode", str, "auto",
-        "Lexicon layout: 'flat' or 'tree' (not ported yet); 'auto' picks "
-        "tree at >= 10k words with composite contexts"),
-    Arg("treela", str, "bg", "Tree lookahead smear (tree lexicon only)"),
-    Arg("nlextree", int, 1, "Number of lexicon-tree copies (tree lexicon only)"),
+        "Lexicon layout: 'flat' (one phone chain per word) or 'tree' "
+        "(prefix-shared channels, unigram lookahead smear, exact trigram at "
+        "the exit readout); 'auto' picks tree at >= 10k words with "
+        "composite contexts; tree requires composite lc+rc"),
+    Arg("treela", str, "bg",
+        "Tree lookahead smear: 'bg' adds a per-history bigram correction at "
+        "the roots (cancelled exactly at the exit readout), 'ug' keeps the "
+        "static unigram smear only"),
+    Arg("nlextree", int, 1,
+        "Number of lexicon-tree copies (tree lexicon only; only 1 is "
+        "ported yet)"),
     Arg("maxbatch", int, 16,
         "Largest utterance batch decoded as one program in the reference; "
         "no effect here"),
@@ -76,10 +105,46 @@ NGRAM_ARGS = [
         "Apply beam pruning (prune_channels / save_bp threshold semantics)"),
 ]
 
+# Bytes of expanded senone scores one block of frames of the static and
+# tree steps may hold.  The reference sized its frame blocks for TPU memory
+# (ROADMAP A-x); the expansion is elementwise, so the block changes no
+# result.
+EXPAND_BLOCK_BYTES = 192 << 20
+
 
 def _f32(x: float) -> float:
     """A Python float rounded to float32, as the reference's jnp.float32."""
     return float(np.float32(x))
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """`jax.lax.top_k` along the last axis: descending, lowest index first
+    on ties (a stable sort; `torch.topk` leaves the tie order open)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def topk2(x: torch.Tensor, k: int, bs: int = 128):
+    """The reference's exact two-stage top-k along the last axis.  Up to
+    M = 4*k*bs elements it is `_top_k`.  Above, the top-k of the per-block
+    maxima picks k blocks, their indices are sorted back to index order,
+    and their elements are re-ranked: ties then keep lowest-index priority
+    among the selected blocks, which differs from a direct top-k only when
+    the k-th value ties across more than k blocks."""
+    M = x.shape[-1]
+    nb = (M + bs - 1) // bs
+    if nb <= k or M <= 4 * k * bs:
+        return _top_k(x, k)
+    lead = x.shape[:-1]
+    pad = nb * bs - M
+    if pad:
+        x = torch.cat([x, x.new_full(lead + (pad,), NEG_INF)], -1)
+    blk = x.reshape(lead + (nb, bs))
+    _, bi = _top_k(blk.amax(-1), k)
+    bi = bi.sort(-1).values
+    sel = blk.gather(-2, bi[..., None].expand(lead + (k, bs)))
+    tv, ti = _top_k(sel.reshape(lead + (k * bs,)), k)
+    return tv, bi.gather(-1, ti // bs) * bs + ti % bs
 
 
 class NgramVocab:
@@ -116,7 +181,7 @@ class NgramVocab:
 
 class NgramSearch(nn.Module):
     """Trigram decoder over a senone scorer.  The graph's tables, the
-    transition matrices and the LM table are buffers on `device`."""
+    transition matrices and the LM tables are buffers on `device`."""
 
     FRAME_BUCKET = 100
 
@@ -145,7 +210,8 @@ class NgramSearch(nn.Module):
         self.log_wbeam = _f32(math.log(float(cfg["wbeam"])))
         if int(cfg["pl_window"]):
             raise NotImplementedError(
-                "pl_window (phone-loop lookahead) is not ported yet")
+                "pl_window (phone-loop lookahead) is not ported yet "
+                "(ROADMAP A12)")
 
         self.lm = lm
         self.dict = d
@@ -155,24 +221,37 @@ class NgramSearch(nn.Module):
         rc_mode = str(cfg["rcmode"])
         if rc_mode == "auto":
             rc_mode = "fanout" if v.n_word < 1000 else "composite"
+        self.rc_mode = rc_mode
         lc_mode = str(cfg["lcmode"])
         if lc_mode == "auto":
             lc_mode = "mpx" if rc_mode == "fanout" else "composite"
         lex_mode = str(cfg["lexmode"])
         if lex_mode == "auto":
-            lex_mode = "flat"
-        if (rc_mode, lc_mode, lex_mode) != ("fanout", "mpx", "flat"):
-            raise NotImplementedError(
-                f"rcmode={rc_mode!r}, lcmode={lc_mode!r}, lexmode="
-                f"{lex_mode!r}: only the flat fanout/mpx graph is ported "
-                "(composite contexts and the tree lexicon are ROADMAP "
-                "A9/A10); vocabularies of 1000 words or more select "
-                "composite contexts under 'auto'")
+            lex_mode = ("tree" if v.n_word >= 10000
+                        and rc_mode == "composite"
+                        and lc_mode == "composite" else "flat")
+        # Unigram lookahead for the tree smear (0 for fillers: they pay
+        # their own penalties at the exit readout).
+        ugla = None
+        if lex_mode == "tree":
+            ugla = np.where(v.is_filler, 0.0,
+                            np.asarray(lm.ug_prob)[np.maximum(v.lmwid, 0)])
         g = self.graph = build_word_graph(v.dict_wid, d, mdef,
                                           Dict2Pid(mdef, d), rc_mode=rc_mode,
-                                          lc_mode=lc_mode, lex_mode=lex_mode)
-        if g.n_xs != g.n_sing:
-            raise NotImplementedError("composite xs rows are not ported yet")
+                                          lc_mode=lc_mode, lex_mode=lex_mode,
+                                          ug_lookahead=ugla)
+        self._tree = g.lex_mode == "tree"
+        if self._tree and int(cfg["nlextree"]) > 1:
+            raise NotImplementedError(
+                "nlextree > 1 (parallel lexicon-tree copies) is not ported "
+                "yet (ROADMAP A10b)")
+        # Static senones (composite left contexts): the frame-block
+        # expansion, and a pure shift for within-word propagation when
+        # every chain channel's predecessor is the previous channel.
+        self._fast = g.lc_mode == "composite"
+        chain = np.arange(g.n_chan) - 1
+        self._chain_shift = bool(
+            np.all((g.prev_chan == -1) | (g.prev_chan == chain)))
         self.E = min(self.E, v.n_word)
         self.dlm = DeviceNgram(lm, device=self.device)
         self.start_lmwid = lm.word_id("<s>")
@@ -193,51 +272,269 @@ class NgramSearch(nn.Module):
                 ent0[k] = self.lw * self.lm.bg_score(
                     self.start_lmwid, int(v.lmwid[k])) + self.log_wip
         entc0 = np.full((g.n_chan,), NEG_INF, np.float32)
-        entc0[g.is_entry] = ent0[g.word_of[g.is_entry]]
+        if self._tree:
+            # Tree entries carry only the lookahead smear; the exact LM,
+            # P(w|<s>) included, is applied at the exit readout from the
+            # (<s>, -1) history.
+            self._setup_tree_bgla(g, v)
+            entc0[g.is_entry] = self.lw * g.la[g.is_entry]
+            if self.use_bgla:
+                entc0[self._roots_np] += self._corr0_np
+        else:
+            entc0[g.is_entry] = ent0[g.word_of[g.is_entry]]
         xs0 = g.static_xs.copy()
         xs0[g.is_entry] = g.lcmap[g.lc_row[g.is_entry], self.sil_ci]
 
-        def buf(name, a, dtype=None):
-            t = torch.as_tensor(np.asarray(a))
-            if dtype is not None:
-                t = t.to(dtype)
-            elif t.dtype in (torch.int16, torch.int32):
-                t = t.long()
-            self.register_buffer(name, t.to(self.device), persistent=False)
-
-        buf("_tp", tmat.log_tp[g.tmat_idx], torch.float32)       # [C, S, S+1]
-        buf("_sing_sen", g.sing_sen)                              # [n_xs, S]
+        buf = self._buf
+        buf("_sing_sen", g.sing_sen)                              # [n_sing, S]
         buf("_sing_valid", g.sing_valid)
+        buf("_comp_valid", g.comp_valid)                          # [n_comp, S]
+        groups = g.comp_groups or [g.comp_mem]
+        for i, cg in enumerate(groups):                           # [n_i, S, U_i]
+            buf(f"_comp_group{i}", cg)
+        self._n_comp_groups = len(groups)
         buf("_static_xs", g.static_xs)
         buf("_word_of", g.word_of)
         buf("_is_entry", g.is_entry)
-        buf("_lcmap_flat", g.lcmap.reshape(-1))
-        buf("_lc_row_base", g.lc_row.astype(np.int64) * g.n_ci)
         buf("_exit_valid", g.exit_tab >= 0)                       # [W, Vr]
         buf("_exit_tab_c", np.maximum(g.exit_tab, 0))
-        buf("_rssid_first", g.rssid[:, g.firstci])                # [W, W]
+        buf("_rssid", g.rssid)                                    # [W, n_ci]
+        buf("_firstci", g.firstci)
         buf("_rssid_sil", g.rssid[:, self.sil_ci])                # [W]
         buf("_has_prev", g.prev_chan >= 0)
         buf("_prev_chan_c", np.maximum(g.prev_chan, 0))
-        buf("_lastci", g.lastci)
         buf("_lmwid", v.lmwid)
         buf("_lmwid_c", np.maximum(v.lmwid, 0))
         buf("_is_filler", v.is_filler)
         buf("_is_finish", v.is_finish)
         buf("_fil_pen", fp)
         buf("_entc0", entc0)
-        buf("_entxs0", xs0)
+        for name, b in zip(("d0", "d1", "d2", "elast", "eprev"),
+                           hmm_bands(tmat.log_tp[g.tmat_idx])):
+            buf("_band_" + name, b, torch.float32)
+        if self._fast:
+            buf("_exit_col", np.maximum(g.exit_tab[:, 0], 0))
+            if self._tree:
+                # lw-scaled lookahead tables: per-channel smear, telescoping
+                # within-word delta, per-word exit correction (lw * ug(w);
+                # 0 for fillers).
+                la = self.lw * g.la.astype(np.float64)
+                delta = np.where(g.prev_chan >= 0,
+                                 la - la[np.maximum(g.prev_chan, 0)], 0.0)
+                buf("_la_entry_c", la.astype(np.float32))
+                buf("_la_delta_c", delta.astype(np.float32))
+                buf("_la_word_lw", (self.lw * g.la_word).astype(np.float32))
+                buf("_psel_bonus", np.where(v.is_filler, fp,
+                                            np.float32(self.log_wip)),
+                    torch.float32)
+        else:
+            buf("_lcmap_flat", g.lcmap.reshape(-1))
+            buf("_lc_row_base", g.lc_row.astype(np.int64) * g.n_ci)
+            buf("_lastci", g.lastci)
+            buf("_entxs0", xs0)
         # (tapes, lengths, last index) of the most recent batch; the tapes
         # stay on the device.
         self._last_batch: Optional[tuple] = None
 
-    # ------------------------------------------------------------------
-    def _xscores(self, scores_t: torch.Tensor) -> torch.Tensor:
-        """Senone scores of one frame [B, n_sen] -> extended-senone-sequence
-        scores [B, n_xs, S] (all rows are singletons on this graph)."""
-        return torch.where(self._sing_valid, scores_t[:, self._sing_sen],
-                           NEG_INF)
+    def _buf(self, name: str, a, dtype=None) -> None:
+        """Register host array `a` as a buffer on the search's device;
+        narrow integers widen to int64 (torch's index type)."""
+        t = torch.as_tensor(np.asarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        elif t.dtype in (torch.int16, torch.int32):
+            t = t.long()
+        self.register_buffer(name, t.to(self.device), persistent=False)
 
+    # ------------------------------------------------------------------
+    def _setup_tree_bgla(self, g, v) -> None:
+        """Bigram-lookahead tables for the tree smear (host numpy, as the
+        reference's `_setup_tree_bgla`): for every re-entry history h, a
+        per-root correction corr(h, r) = lw * (max over the subtree's words
+        of bg(h, w) - ugmax(r)), stored as a CSR over (h, r) pairs with an
+        explicit successor (`_bgla_ptr/_root/_val`) over the dense backoff
+        base lw * bo(h).  `_root_of_word` maps each word to the root its
+        tokens entered; `_corr0` is the <s> row for utterance-initial
+        entries."""
+        lm, W = self.lm, v.n_word
+        prevc = g.prev_chan
+        if g.exit_base >= 0:
+            cur = np.arange(W, dtype=np.int64) + g.exit_base
+        else:
+            cur = np.asarray(np.maximum(g.exit_tab[:, 0], 0), np.int64)
+        for _ in range(256):
+            nxt = prevc[cur]
+            m = nxt >= 0
+            if not m.any():
+                break
+            cur = np.where(m, nxt, cur)
+        roots_idx = np.nonzero(g.is_entry)[0]
+        R = len(roots_idx)
+        rid = np.full(g.n_chan, -1, np.int64)
+        rid[roots_idx] = np.arange(R)
+        root_of_word = rid[cur]
+        if not (root_of_word >= 0).all():
+            raise ValueError("a word's channel path must start at a root")
+        self._n_roots = R
+        self._roots_np = roots_idx
+        self._buf("_roots", roots_idx)
+        self._buf("_root_of_word", root_of_word)
+        self.use_bgla = str(self.config["treela"]) == "bg"
+        if not self.use_bgla:
+            self._corr0_np = np.zeros(R, np.float32)
+            self._buf("_corr0", self._corr0_np)
+            return
+        ugmax_root = np.asarray(g.la, np.float64)[roots_idx]
+        is_fil = np.asarray(v.is_filler)
+        lmw = np.asarray(v.lmwid, np.int64)
+        okw = (~is_fil) & (lmw >= 0)
+        has_word = np.zeros(R, bool)
+        has_word[root_of_word[okw]] = True
+        Vlm = lm.n_words
+        lww = np.float32(self.lw)
+        # Sparse excess entries: for every (context h, root r) with an
+        # explicit bigram successor in subtree(r),
+        #   excess = lw * (max explicit bg_prob - ugmax(r)).
+        keys = np.zeros(0, np.int64)
+        vals = np.zeros(0, np.float32)
+        if len(lm.bg_wid):
+            pairs = np.unique(
+                np.stack([lmw[okw], root_of_word[okw]], 1), axis=0)
+            pptr = np.searchsorted(pairs[:, 0], np.arange(Vlm + 1))
+            cnt = np.diff(pptr)
+            ctx = np.repeat(np.arange(Vlm),
+                            np.diff(lm.bg_ptr)).astype(np.int64)
+            wid = np.asarray(lm.bg_wid, np.int64)
+            prob = np.asarray(lm.bg_prob, np.float32)
+            ks, vs = [], []
+            for p in range(int(cnt.max()) if len(cnt) else 0):
+                sel = cnt[wid] > p
+                r = pairs[pptr[wid[sel]] + p, 1]
+                ks.append(ctx[sel] * R + r)
+                vs.append(prob[sel] - ugmax_root[r].astype(np.float32))
+            if ks:
+                keys = np.concatenate(ks)
+                vals = np.concatenate(vs)
+                order = np.argsort(keys, kind="stable")
+                keys, vals = keys[order], vals[order]
+                uk, start = np.unique(keys, return_index=True)
+                vmax = np.maximum.reduceat(vals, start)
+                rr = (uk % R).astype(np.int64)
+                keep = has_word[rr]
+                keys, vals = uk[keep], (lww * vmax[keep]).astype(np.float32)
+        rowptr = np.searchsorted(keys // R, np.arange(Vlm + 1))
+        bgla_root = (keys % R if len(keys) else np.zeros(1, np.int64))
+        bgla_val = vals if len(vals) else np.zeros(1, np.float32)
+        self._buf("_bgla_ptr", rowptr)
+        self._buf("_bgla_root", bgla_root, torch.int64)
+        self._buf("_bgla_val", bgla_val, torch.float32)
+        self._bgla_maxrow = int(np.diff(rowptr).max()) if len(keys) else 0
+        self._buf("_bgla_base", (lww * np.asarray(lm.ug_bo, np.float32)
+                                 ).astype(np.float32))
+        self._buf("_has_word", has_word)
+        # <s> row for utterance-initial entries (host-evaluated).
+        corr0 = np.full(R, 0.0, np.float32)
+        if self.start_lmwid >= 0:
+            corr0[:] = lww * float(lm.ug_bo[self.start_lmwid])
+            lo, hi = int(rowptr[self.start_lmwid]), int(
+                rowptr[self.start_lmwid + 1])
+            if hi > lo:
+                np.maximum.at(corr0, bgla_root[lo:hi], bgla_val[lo:hi])
+            corr0[~has_word] = 0.0
+        self._corr0_np = corr0
+        self._buf("_corr0", corr0)
+
+    def _bgla_rows(self, h: torch.Tensor) -> torch.Tensor:
+        """Bigram corrections for history words h [L] -> [L, R]: the base
+        lw * bo(h) overlaid with the CSR excess entries by a scatter-max
+        whose masked lanes go to the dropped column R; 0 for h < 0 (no
+        context) and for roots without LM words."""
+        R = self._n_roots
+        L = h.shape[0]
+        hc = h.clamp_min(0)
+        corr = self._bgla_base[hc][:, None].expand(L, R + 1).contiguous()
+        if self._bgla_maxrow:
+            lo = self._bgla_ptr[hc]
+            hi = self._bgla_ptr[hc + 1]
+            pos = lo[:, None] + torch.arange(self._bgla_maxrow,
+                                             device=h.device)
+            okk = pos < hi[:, None]
+            idx = pos.clamp_max(self._bgla_root.shape[0] - 1)
+            r = torch.where(okk, self._bgla_root[idx], R)
+            val = torch.where(okk, self._bgla_val[idx], NEG_INF)
+            corr = corr.scatter_reduce(1, r, val, "amax")
+        corr = corr[:, :R]
+        return torch.where(self._has_word[None] & (h[:, None] >= 0), corr,
+                           0.0)
+
+    # ------------------------------------------------------------------
+    def _xs_rows(self, scores: torch.Tensor) -> torch.Tensor:
+        """Senone scores [..., n_sen] -> extended-senone-sequence scores
+        [..., n_xs, S]: singleton rows are a gather, composite rows the max
+        over their members, one width bucket (`comp_groups`) at a time."""
+        g = self.graph
+        base = torch.where(self._sing_valid, scores[..., self._sing_sen],
+                           NEG_INF)
+        if g.n_xs == g.n_sing:
+            return base
+        comp = torch.cat([scores[..., getattr(self, f"_comp_group{i}")]
+                          .amax(-1) for i in range(self._n_comp_groups)], -2)
+        comp = torch.where(self._comp_valid, comp, NEG_INF)
+        return torch.cat([base[..., : g.n_sing, :],
+                          comp[..., : g.n_xs - g.n_sing, :]], -2)
+
+    def _expand_block(self, scores_blk: torch.Tensor) -> torch.Tensor:
+        """Static senone expansion of a block of frames: [B, K, n_sen] ->
+        [K, B, C, S] (every channel's senone row is fixed)."""
+        return self._xs_rows(scores_blk.transpose(0, 1))[:, :, self._static_xs]
+
+    def _lm_scores(self, h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+        """P(w | h1, h2) for every search word: [B, E] histories ->
+        [B, E, W].  Per-history score rows when the LM has no dense table,
+        as the reference's cores do."""
+        B, E = h1.shape
+        W = self.vocab.n_word
+        if self.dlm.tg_dense is None:
+            rows = self.dlm.score_rows(h1.reshape(-1), h2.reshape(-1))
+            return rows[:, self._lmwid_c].view(B, E, W)
+        return self.dlm.score_tg(h1[..., None], h2[..., None], self._lmwid_c,
+                                 lanes=E * W)
+
+    def _prune(self, alpha, ex):
+        """Channel beam and word-exit beam relative to each utterance's
+        frame best (prune_channels / save_bp thresholds)."""
+        if not self.prune:
+            return alpha, ex
+        bestscr = alpha.amax(dim=(1, 2))                          # [B]
+        keep = alpha.amax(2) > (bestscr + self.log_beam)[:, None]
+        alpha = torch.where(keep[..., None], alpha, NEG_INF)
+        ex = torch.where(ex > (bestscr + self.log_wbeam)[:, None], ex, NEG_INF)
+        return alpha, ex
+
+    @staticmethod
+    def _write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc) -> None:
+        tw, tsc, tprev, th2, th1, trc = tape
+        tw[:, t] = torch.where(ok, wsel, -1)
+        tsc[:, t] = torch.where(ok, vals, NEG_INF)
+        tprev[:, t] = pe
+        th2[:, t] = h2
+        th1[:, t] = h1
+        trc[:, t] = torch.where(ok[..., None], slot_rc, NEG_INF)
+
+    def _read_hist(self, ht, pe):
+        """Histories (h2, h1) of the tape slots `pe` [B, L] from the
+        side-table ht [B, Tpad*E, 2]; slot -1 is the initial (<s>, -1)."""
+        ph = ht.gather(1, pe.clamp_min(0)[..., None].expand(-1, -1, 2))
+        return (torch.where(pe < 0, self.start_lmwid, ph[..., 0]),
+                torch.where(pe < 0, -1, ph[..., 1]))
+
+    @staticmethod
+    def _record_hist(ht, t, E, valid_t, h2, h1) -> None:
+        ht[:, t * E: (t + 1) * E] = torch.where(
+            valid_t[:, None, None], torch.stack([h2, h1], -1), -1)
+
+    # ------------------------------------------------------------------
+    # The mpx frame step (multiplexed left contexts).
     def _init_hmmc(self, B: int):
         """Initial HMM carry: all channels silent except the static <s>
         entries; word-history payloads (hw2, hw1) start at (<s>, -1)."""
@@ -259,8 +556,8 @@ class NgramSearch(nn.Module):
         return tuple(a[None].expand(B, C, S).contiguous()
                      for a in (alpha,) + pays)
 
-    def _step(self, hmmc, scores_t, t: int, valid_t, tape):
-        """One frame of the Viterbi core for the whole batch.  Writes the
+    def _step_mpx(self, hmmc, scores_t, t: int, valid_t, tape):
+        """One frame of the mpx core for the whole batch.  Writes the
         frame's tape row into `tape` and returns the new carry."""
         alpha0, hist0, xsr0, hw20, hw10 = hmmc
         B = alpha0.shape[0]
@@ -269,16 +566,10 @@ class NgramSearch(nn.Module):
         Vr = self.graph.n_rcvar
         neg = NEG_INF
 
-        sen_c = torch.gather(self._xscores(scores_t), 1, xsr0)   # [B, C, S]
+        sen_c = torch.gather(self._xs_rows(scores_t), 1, xsr0)   # [B, C, S]
         alpha, (hist, xsr, hw2, hw1), ex, (exh, _, exh2, exh1) = hmm_step(
-            alpha0, (hist0, xsr0, hw20, hw10), sen_c, self._tp)
-
-        if self.prune:
-            # Channel beam + word-exit beam relative to the frame best.
-            bestscr = alpha.amax(dim=(1, 2))                      # [B]
-            keep = alpha.amax(2) > (bestscr + self.log_beam)[:, None]
-            alpha = torch.where(keep[..., None], alpha, neg)
-            ex = torch.where(ex > (bestscr + self.log_wbeam)[:, None], ex, neg)
+            alpha0, (hist0, xsr0, hw20, hw10), sen_c, self._bands())
+        alpha, ex = self._prune(alpha, ex)
 
         # ---- word exits: per-variant readout [B, W, Vr] ----
         exv = torch.where(self._exit_valid, ex[:, self._exit_tab_c], neg)
@@ -290,8 +581,7 @@ class NgramSearch(nn.Module):
         wexh3 = torch.gather(exh3, 1, sel[..., None].expand(B, W, 3))
 
         # ---- top-E word exits -> tape slots ----
-        vals, wsel = torch.sort(wex, dim=1, descending=True, stable=True)
-        vals, wsel = vals[:, :E], wsel[:, :E]                     # [B, E]
+        vals, wsel = topk2(wex, E)                                # [B, E]
         ok = (vals > neg * 0.5) & valid_t[:, None]
         slot_rc = torch.gather(exv, 1, wsel[..., None].expand(B, E, Vr))
         pe, prev_h2, prev_h1 = torch.gather(
@@ -299,33 +589,10 @@ class NgramSearch(nn.Module):
         fil = self._is_filler[wsel]
         h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
         h1 = torch.where(fil, prev_h1, prev_h2)
-        tw, tsc, tprev, th2, th1, trc = tape
-        tw[:, t] = torch.where(ok, wsel, -1)
-        tsc[:, t] = torch.where(ok, vals, neg)
-        tprev[:, t] = pe
-        th2[:, t] = h2
-        th1[:, t] = h1
-        trc[:, t] = torch.where(ok[..., None], slot_rc, neg)
+        self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc)
 
         # ---- word entries (take effect next frame) ----
-        Vlm = self.dlm.V
-        i1 = torch.where(h1 < 0, Vlm, h1)
-        i2 = torch.where(h2 < 0, Vlm, h2)
-        plane = self.dlm.tg_dense.view((Vlm + 1) * (Vlm + 1), Vlm)
-        lmw = plane[(i1 * (Vlm + 1) + i2)[..., None], self._lmwid_c]   # [B, E, W]
-        bonus = torch.where(self._is_filler, self._fil_pen,
-                            self._lw32 * lmw + self._wip32)
-        # Acoustic part: the exiting word's rc variant serving this word's
-        # first CI phone (rssid readout).
-        if Vr == 1:
-            ac = slot_rc
-        else:
-            ac = torch.gather(slot_rc, 2, self._rssid_first[wsel])
-        cand = torch.where(ok[..., None], ac + bonus, neg)        # [B, E, W]
-        # Single best entry per word (word_transition semantics).
-        ent_w = cand.amax(1)                                      # [B, W]
-        estar = cand.argmax(1)
-        ebp_w = torch.where(ent_w > neg * 0.5, t * E + estar, -1)
+        ent_w, ebp_w, estar = self._entries(t, ok, wsel, h1, h2, slot_rc)
         eh = torch.gather(torch.stack([self._lastci[wsel], h2, h1], -1), 1,
                           estar[..., None].expand(B, W, 3))
         lcstar, eh2_w, eh1_w = eh.unbind(-1)
@@ -351,21 +618,226 @@ class NgramSearch(nn.Module):
         return tuple(torch.where(v, new, old) for new, old in zip(
             (alpha, hist, xsr, hw2, hw1), hmmc))
 
+    def _entries(self, t: int, ok, wsel, h1, h2, slot_rc):
+        """Single best cross-word entry per word (word_transition
+        semantics): over this frame's E exit slots, exit score (the exit's
+        rc variant serving the word's first CI phone) + LM or filler
+        bonus.  Returns (entry score [B, W], entry bp slot, best slot)."""
+        E = self.E
+        lmw = self._lm_scores(h1, h2)                             # [B, E, W]
+        bonus = torch.where(self._is_filler, self._fil_pen,
+                            self._lw32 * lmw + self._wip32)
+        if self.graph.n_rcvar == 1:
+            ac = slot_rc                                          # [B, E, 1]
+        else:
+            ac = torch.gather(slot_rc, 2,
+                              self._rssid[wsel[..., None], self._firstci])
+        cand = torch.where(ok[..., None], ac + bonus, NEG_INF)    # [B, E, W]
+        ent_w = cand.amax(1)                                      # [B, W]
+        estar = cand.argmax(1)
+        ebp_w = torch.where(ent_w > NEG_INF * 0.5, t * E + estar, -1)
+        return ent_w, ebp_w, estar
+
+    # ------------------------------------------------------------------
+    def _bands(self):
+        """The transition bands of every channel, `hmm_step`'s form."""
+        return (self._band_d0, self._band_d1, self._band_d2,
+                self._band_elast, self._band_eprev)
+
+    def _init_static(self, B: int, Tpad: int):
+        """Initial carry of the static and tree steps: (alpha, bp payload
+        [B, C, S], history side-table [B, Tpad*E, 2]) and, for the tree
+        with bigram lookahead, the entry-correction side-table [B, Tpad*R].
+        The static payload is the tape slot (-1 = the initial (<s>, -1)
+        history); the tree's is an 8-bit entry age (255 = initial)."""
+        g = self.graph
+        C, S = g.n_chan, g.n_emit_state
+        dev = self.device
+        alpha = torch.full((C, S), NEG_INF, dtype=torch.float32, device=dev)
+        alpha, _ = hmm_enter(alpha, (), self._entc0, ())
+        # Every token, entered or not, starts from the initial history.
+        hist = (torch.full((B, C, S), 255, dtype=torch.uint8, device=dev)
+                if self._tree else
+                torch.full((B, C, S), -1, dtype=torch.int64, device=dev))
+        carry = (alpha.expand(B, C, S).contiguous(), hist,
+                 torch.full((B, Tpad * self.E, 2), -1, dtype=torch.int64,
+                            device=dev))
+        if self._tree:
+            R = self._n_roots if self.use_bgla else 1
+            carry += (torch.zeros((B, Tpad * R), dtype=torch.float32,
+                                  device=dev),)
+        return carry
+
+    def _step_static(self, carry, sen_t, t: int, valid_t, tape):
+        """One frame of the static core (composite lc, flat lexicon): the
+        reference's `_make_core_static` (any n_rcvar) and
+        `_make_core_static_batched` (n_rcvar == 1) in one step."""
+        alpha0, hist0, ht = carry
+        B = alpha0.shape[0]
+        E, W, Vr = self.E, self.vocab.n_word, self.graph.n_rcvar
+        neg = NEG_INF
+        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist0,), sen_t,
+                                               self._bands())
+        alpha, ex = self._prune(alpha, ex)
+
+        # ---- word exits ----
+        if Vr == 1:
+            wex = ex[:, self._exit_col]                           # [B, W]
+            wbp = exh[:, self._exit_col]
+        else:
+            exv = torch.where(self._exit_valid, ex[:, self._exit_tab_c], neg)
+            wex = exv.amax(2)
+            vwin = exv.argmax(2)
+            sel = torch.gather(self._exit_tab_c.expand(B, W, Vr), 2,
+                               vwin[..., None])[..., 0]
+            wbp = torch.gather(exh, 1, sel)
+        vals, wsel = topk2(wex, E)                                # [B, E]
+        slot_rc = (vals[..., None] if Vr == 1 else
+                   torch.gather(exv, 1, wsel[..., None].expand(B, E, Vr)))
+        ok = (vals > neg * 0.5) & valid_t[:, None]
+        pe = torch.gather(wbp, 1, wsel)
+        prev_h2, prev_h1 = self._read_hist(ht, pe)
+        fil = self._is_filler[wsel]
+        h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
+        h1 = torch.where(fil, prev_h1, prev_h2)
+        self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc)
+
+        # ---- word entries ----
+        ent_w, ebp_w, _ = self._entries(t, ok, wsel, h1, h2, slot_rc)
+        self._record_hist(ht, t, E, valid_t, h2, h1)
+
+        # ---- within-word propagation ----
+        if self._chain_shift:
+            prop = torch.cat([ex.new_full((B, 1), neg),
+                              ex[:, :-1] + self._pip32], 1)
+            bsh = torch.cat([exh.new_full((B, 1), -1), exh[:, :-1]], 1)
+        else:
+            pc = self._prev_chan_c
+            prop = torch.where(self._has_prev, ex[:, pc] + self._pip32, neg)
+            bsh = torch.where(self._has_prev, exh[:, pc], -1)
+        ie = self._is_entry
+        wo = self._word_of
+        alpha, (hist,) = hmm_enter(
+            alpha, (hist,), torch.where(ie, ent_w[:, wo], prop),
+            (torch.where(ie, ebp_w[:, wo], bsh),))
+        vm = valid_t[:, None, None]
+        return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
+                ht)
+
+    def _step_tree(self, carry, sen_t, t: int, valid_t, tape):
+        """One frame of the prefix-tree core with one tree copy: the
+        reference's `_make_core_tree` (N = 1) and `_make_core_tree_batched`
+        in one step.  Tokens carry an 8-bit entry age (255 = the initial
+        <s> entry; the increment saturates at 254 + 1); the re-entry always
+        takes the frame's slot 0, so a token's tape slot is (t - age)*E."""
+        alpha0, hist0, ht, ct = carry
+        B = alpha0.shape[0]
+        E, W = self.E, self.vocab.n_word
+        R = self._n_roots
+        E2 = min(4 * E, W)
+        neg = NEG_INF
+        g = self.graph
+        hist_in = hist0.clamp_max(254) + 1
+        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist_in,), sen_t,
+                                               self._bands())
+        alpha, ex = self._prune(alpha, ex)
+
+        # ---- exit shortlist on the smeared score ----
+        xb = g.exit_base
+        if xb >= 0:
+            wex, wbp = ex[:, xb: xb + W], exh[:, xb: xb + W]      # [B, W]
+        else:
+            wex, wbp = ex[:, self._exit_col], exh[:, self._exit_col]
+        v2, wsel2 = topk2(wex + self._psel_bonus, E2)             # [B, E2]
+        okp = (v2 > neg * 0.5) & valid_t[:, None]
+        age2 = torch.gather(wbp, 1, wsel2).long()
+        pe2 = torch.where(age2 >= 255, -1, (t - age2) * E)
+        ph2, ph1 = self._read_hist(ht, pe2)
+        wl2 = self._lmwid[wsel2]
+        fil2 = self._is_filler[wsel2]
+        # Exact trigram for the shortlist, replacing the smeared unigram.
+        own = self.dlm.score_tg(ph1, ph2, wl2.clamp_min(0), lanes=E2)
+        if self.use_bgla:
+            # The bigram correction this token received at entry, exactly.
+            rw2 = self._root_of_word[wsel2]                       # [B, E2]
+            te2 = pe2.clamp_min(0) // E
+            cu = torch.gather(ct, 1, te2 * R + rw2)
+            cu = torch.where(pe2 < 0, self._corr0[rw2], cu)
+        else:
+            cu = 0.0
+        resc = torch.where(fil2, v2 - cu,
+                           v2 - cu - self._la_word_lw[wsel2]
+                           + self._lw32 * own)
+        resc = torch.where(okp, resc, neg)
+
+        # ---- top-E rescored exits -> tape slots ----
+        vals, sel = _top_k(resc, E)                               # [B, E]
+        wsel = torch.gather(wsel2, 1, sel)
+        ok = vals > neg * 0.5
+        pe = torch.gather(pe2, 1, sel)
+        prev_h2 = torch.gather(ph2, 1, sel)
+        prev_h1 = torch.gather(ph1, 1, sel)
+        fil = self._is_filler[wsel]
+        h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
+        h1 = torch.where(fil, prev_h1, prev_h2)
+        self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, vals[..., None])
+        self._record_hist(ht, t, E, valid_t, h2, h1)
+
+        # ---- single best re-entry, into every root ----
+        ent = torch.where(ok[:, 0], vals[:, 0], neg)              # [B]
+
+        # ---- within-word propagation with the telescoping smear ----
+        pc = self._prev_chan_c
+        prop = torch.where(self._has_prev,
+                           ex[:, pc] + self._pip32 + self._la_delta_c, neg)
+        bsh = torch.where(self._has_prev, exh[:, pc], 255)
+        entry_base = ent[:, None] + self._la_entry_c
+        if self.use_bgla:
+            # Per-history bigram correction at the roots, recorded for the
+            # exact cancellation at the exit readout (0 on padded frames,
+            # whose rows are never read).
+            corr = self._bgla_rows(h2[:, 0])                      # [B, R]
+            ct[:, t * R: (t + 1) * R] = torch.where(valid_t[:, None], corr,
+                                                    0.0)
+            entry_base[:, self._roots] += corr
+        ie = self._is_entry
+        alpha, (hist,) = hmm_enter(
+            alpha, (hist,), torch.where(ie, entry_base, prop),
+            (torch.where(ie, 0, bsh).to(torch.uint8),))
+        vm = valid_t[:, None, None]
+        return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
+                ht, ct)
+
+    # ------------------------------------------------------------------
     def device_decode(self, feats: torch.Tensor, valid: torch.Tensor):
         """Padded feats [B, Tpad, D] + valid mask [B, Tpad] -> backpointer
         tapes (tw, tsc, tprev, th2, th1 [B, Tpad*E]; trc [B, Tpad*E, Vr]),
         slot = t*E + e."""
         B, Tpad = feats.shape[0], feats.shape[1]
-        E, Vr = self.E, self.graph.n_rcvar
+        g, E = self.graph, self.E
+        Vr = g.n_rcvar
         dev = self.device
         scores = self.scorer.score(feats)                         # [B, Tpad, n_sen]
         tape = tuple(torch.empty((B, Tpad, E), dtype=dt, device=dev)
                      for dt in (torch.int32, torch.float32, torch.int32,
                                 torch.int32, torch.int32)) + (
             torch.empty((B, Tpad, E, Vr), dtype=torch.float32, device=dev),)
-        hmmc = self._init_hmmc(B)
-        for t in range(Tpad):
-            hmmc = self._step(hmmc, scores[:, t], t, valid[:, t], tape)
+        if self._fast:
+            step = self._step_tree if self._tree else self._step_static
+            carry = self._init_static(B, Tpad)
+            per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
+            KB = max(1, min(self.FRAME_BUCKET,
+                            EXPAND_BLOCK_BYTES // per_frame))
+            for t0 in range(0, Tpad, KB):
+                sen = self._expand_block(scores[:, t0: t0 + KB])
+                for k in range(sen.shape[0]):
+                    carry = step(carry, sen[k], t0 + k, valid[:, t0 + k],
+                                 tape)
+        else:
+            hmmc = self._init_hmmc(B)
+            for t in range(Tpad):
+                hmmc = self._step_mpx(hmmc, scores[:, t], t, valid[:, t],
+                                      tape)
         tw, tsc, tprev, th2, th1, trc = tape
         n = Tpad * E
         return (tw.view(B, n), tsc.view(B, n), tprev.view(B, n),
@@ -399,7 +871,8 @@ class NgramSearch(nn.Module):
         rc = torch.gather(trc_f, 2, self._rssid_sil[twc][..., None])[..., 0]
         s = torch.where(rc > neg * 0.5, rc, tsc_f)
         tg = self.dlm.score_tg(th1_f, th2_f,
-                               torch.full_like(th1_f, self.finish_lmwid))
+                               torch.full_like(th1_f, self.finish_lmwid),
+                               lanes=E)
         s = s + torch.where(self._is_finish[twc], 0.0, self._lw32 * tg)
         s = torch.where(tw_f >= 0, s, neg)
         e0 = s.argmax(1)

@@ -1,6 +1,6 @@
 """Seeded recognition tasks with a known answer, and their model directories.
 
-`build(seed, small, model)` makes, with numpy and the reference package's
+`build(seed, model, size)` makes, with numpy and the reference package's
 jax-free readers and constructors, everything the N-gram decode path needs:
 
 - a phone set of CI phones plus SIL, 3 emitting states each;
@@ -31,10 +31,21 @@ jax-free readers and constructors, everything the N-gram decode path needs:
 The structure (phones, triphones, dictionary, LM, transitions) depends on
 the seed and size only, so every model kind shares it.
 
-At full size (`small=False`) the model has S=5150 senones with the
-hub4-class widths: K=32 Gaussians per senone for `cont`, K=256 per stream
-for `semi`; 300 words keep the LM on the dense [V+1, V+1, V] table and the
-graph on the flat fanout/mpx path.  `small=True` is the CPU test size.
+Sizes (`Size`):
+
+- `FULL` (the default): S=5150 senones with the hub4-class widths: K=32
+  Gaussians per senone for `cont`, K=256 per stream for `semi`; 300 words
+  keep the LM on the dense [V+1, V+1, V] table and the graph on the flat
+  fanout/mpx path.
+- `SMALL`: the CPU test size, 20 words.
+- `MEDIUM`: SMALL's acoustic widths with 1,200 words, enough that `auto`
+  picks composite contexts and the LM leaves the dense table for the
+  sparse backends (hashed point lookups); the CPU test size of the
+  large-vocabulary paths.
+- `LARGE`: FULL's widths with 20,000 words (60,000 LM sentences), where
+  `auto` picks the prefix-tree lexicon.
+- `LARGE_5K`: LARGE cut to 5,000 words (15,000 sentences), where `auto`
+  picks composite contexts on the flat lexicon.
 
 `write_model_dir` writes a fixture as a model directory (mdef, means,
 variances, transition_matrices, sendump or mixture_weights, feat.params,
@@ -47,7 +58,7 @@ from __future__ import annotations
 import math
 import os
 import tempfile
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -85,6 +96,9 @@ FULL = Size(n_phone=39, n_sen=5150, n_density=32, n_density_semi=256,
 SMALL = Size(n_phone=10, n_sen=96, n_density=4, n_density_semi=32,
              n_density_ptm=8, n_word=20, pron_len=(2, 4), n_utt=3,
              frames=(80, 200), n_sent=200, sent_len=(2, 3))
+MEDIUM = replace(SMALL, n_word=1200, pron_len=(2, 5), n_sent=6000)
+LARGE = replace(FULL, n_word=20000, n_sent=60000)
+LARGE_5K = replace(LARGE, n_word=5000, n_sent=15000)
 
 _BASE_FEAT = {"ceplen": NCEP, "cmn": "current", "agc": "none"}
 # The feature parameters each model kind carries in its feat.params.
@@ -140,11 +154,10 @@ def _stream_slices(feat_params) -> List[np.ndarray]:
     return FeatPipeline(cfg, device="cpu").stream_slices()
 
 
-def build(seed: int = 0, small: bool = False, model: str = "cont") -> Fixture:
+def build(seed: int = 0, model: str = "cont", size: Size = FULL) -> Fixture:
     if model not in _ACOUSTIC:
         raise ValueError(f"model must be one of {sorted(_ACOUSTIC)}, "
                          f"got {model!r}")
-    size = SMALL if small else FULL
     rng = np.random.RandomState(seed)
     phones = CMU_PHONES[: size.n_phone]
     ci_names = phones + ["SIL"]

@@ -14,8 +14,12 @@ Scores are float32 natural logs.  `NEG_INF` stays the finite -1e30 sentinel:
 the decoder compares against `NEG_INF * 0.5`, and a log-sum-exp over a row
 of `-inf` would give NaN.
 
-Every function takes any number of leading batch dimensions: alpha and
-payloads are `[..., N, S]`, transition matrices `[N, S, S+1]`.
+`hmm_step` and `hmm_enter` take any number of leading batch dimensions:
+alpha, payloads and senone scores are `[..., N, S]`, and the transitions
+come as the bands of `hmm_bands`, computed once per graph.  One form serves
+every search: the reference's channel-major, batch-major `[B, S, C]` and
+flat state-major `_sm` variants differ only in layout, chosen for the
+TPU's lanes.
 """
 
 from __future__ import annotations
@@ -40,64 +44,62 @@ def hmm_init_state(n: int, n_state: int, n_payload: int = 1, *,
     return alpha, payloads
 
 
-def _band(log_tp: torch.Tensor, off: int) -> torch.Tensor:
-    """tp [N, S, S+1] -> tp[:, j, j+off] for the valid j: [N, S-off]."""
-    S = log_tp.shape[1]
-    j = torch.arange(S - off, device=log_tp.device)
-    return log_tp[:, j, j + off]
-
-
-def _shift(p: torch.Tensor, k: int, fill) -> torch.Tensor:
-    """p[..., j-k] along the state axis, the first k states set to `fill`
-    (a scalar) or taken from `fill` (a tensor shaped like p)."""
-    out = torch.empty_like(p)
-    out[..., k:] = p[..., :-k]
-    if isinstance(fill, torch.Tensor):
-        out[..., :k] = fill[..., :k]
-    else:
-        out[..., :k] = fill
-    return out
+def hmm_bands(log_tp: np.ndarray):
+    """Transition bands from [N, S, S+1] matrices (host numpy, once per
+    graph): (d0 [N, S] self loops, d1 [N, S-1], d2 [N, S-2] skips,
+    e_last [N], e_prev [N] exits).  The reference's bands, laid out
+    channel-major like the states instead of flat state-major."""
+    N, S = log_tp.shape[0], log_tp.shape[1]
+    j = np.arange(S)
+    d0 = log_tp[:, j, j]
+    d1 = log_tp[:, j[:-1], j[:-1] + 1]
+    d2 = log_tp[:, j[:-2], j[:-2] + 2]
+    e_last = log_tp[:, S - 1, S]
+    e_prev = log_tp[:, S - 2, S] if S >= 2 else np.full(N, NEG_INF)
+    return d0, d1, d2, e_last, e_prev
 
 
 def hmm_step(alpha: torch.Tensor, payloads: Payloads, sen: torch.Tensor,
-             log_tp: torch.Tensor):
+             bands: Tuple[torch.Tensor, ...]):
     """One Viterbi frame update for N HMMs.
 
     alpha:    [..., N, S] state scores (emission not yet applied)
     payloads: tuple of [..., N, S] integer tensors carried with the argmax
     sen:      [..., N, S] senone scores per state
-    log_tp:   [N, S, S+1] log transition probabilities
+    bands:    `hmm_bands`' arrays as tensors on alpha's device
 
     Returns (new_alpha, new_payloads, exit_score [..., N],
     exit_payloads tuple of [..., N]).
     """
     S = alpha.shape[-1]
+    d0, d1, d2, e_last, e_prev = bands
     s = alpha + sen
 
-    e_last = s[..., S - 1] + log_tp[:, S - 1, S]
+    e_l = s[..., S - 1] + e_last
     if S >= 2:
-        e_prev = s[..., S - 2] + log_tp[:, S - 2, S]
-        take_last = e_last >= e_prev
-        exit_score = torch.where(take_last, e_last, e_prev)
+        e_p = s[..., S - 2] + e_prev
+        take_last = e_l >= e_p
+        exit_score = torch.where(take_last, e_l, e_p)
         exit_payloads = tuple(
             torch.where(take_last, p[..., S - 1], p[..., S - 2])
             for p in payloads)
     else:
-        exit_score = e_last
+        exit_score = e_l
         exit_payloads = tuple(p[..., S - 1] for p in payloads)
     exit_score = exit_score.clamp_min(NEG_INF)
 
-    c_self = s + _band(log_tp, 0)
+    c_self = s + d0
     if S == 1:
         return c_self.clamp_min(NEG_INF), payloads, exit_score, exit_payloads
 
-    c_prev = _shift(s, 1, NEG_INF)
-    c_prev[..., 1:] += _band(log_tp, 1)
-    p_prev = [_shift(p, 1, p) for p in payloads]
+    # Candidates from j-1 and j-2; the first states' payloads stand in for
+    # their missing predecessors (their scores are NEG_INF).
+    neg = s.new_full(s.shape[:-1] + (min(S - 1, 2),), NEG_INF)
+    c_prev = torch.cat([neg[..., :1], s[..., :-1] + d1], -1)
+    p_prev = [torch.cat([p[..., :1], p[..., :-1]], -1) for p in payloads]
     if S >= 3:
-        c_skip = _shift(s, 2, NEG_INF)
-        c_skip[..., 2:] += _band(log_tp, 2)
-        p_skip = [_shift(p, 2, p) for p in payloads]
+        c_skip = torch.cat([neg, s[..., :-2] + d2], -1)
+        p_skip = [torch.cat([p[..., :2], p[..., :-2]], -1) for p in payloads]
         m12 = torch.maximum(c_prev, c_skip)
         new_alpha = torch.maximum(c_self, m12)
         sel_self = c_self >= m12

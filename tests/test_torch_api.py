@@ -45,7 +45,7 @@ def _same(h, j):
 def model_dirs(tmp_path_factory):
     out = {}
     for name, (model, kind, extra, _) in CASES.items():
-        fx = fixture.build(0, small=True, model=model)
+        fx = fixture.build(0, model=model, size=fixture.SMALL)
         root = str(tmp_path_factory.mktemp(name))
         kw = fixture.write_model_dir(fx, root, kind)
         extra = dict(extra)

@@ -1,14 +1,17 @@
 """The port on the GPU: kernel K1 against its plain version, a
-one-utterance decode through it, the other scorers, the frontend and the
-Decoder on the card against their CPU runs.  Skips where there is no CUDA
-device.
+one-utterance decode through it, the other scorers, the frontend, the
+Decoder, the LM backends and the large-vocabulary searches on the card
+against their CPU runs.  Skips where there is no CUDA device.
 
 Tolerances against the CPU run: `PsParityScorer`'s epilogue bit-exact on
 the same int32 densities, and the whole scorer bit-exact on an
 integer-exact model with planted ties; its densities and the float
 scorers within D * 2^-22 * M (plus 1e-5 relative for exp/log); the
 frontend within 1e-4 per log-mel value carried through |dct| and the
-lifter (as tests/test_torch_fe.py states it).
+lifter (as tests/test_torch_fe.py states it); every LM backend
+bit-exact; the large-vocabulary decodes with integer tapes equal and float
+tapes within rtol 1e-5 (K1 against the CPU's plain scorer: float32 sums
+in another order).
 
 On a machine with the card (which has no JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -73,7 +76,7 @@ def test_k1_matches_plain_version(cuda, mode):
 
 
 def test_one_utterance_decode_through_k1(cuda):
-    fx = fixture.build(0, small=True)
+    fx = fixture.build(0, size=fixture.SMALL)
     sc = ContinuousScorer(fx.gauden, fx.ln_mixw, device=cuda)
     s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device=cuda)
     fp = FeatPipeline(fx.feat_config(), device=cuda)
@@ -214,7 +217,7 @@ def test_frontend_on_card_matches_cpu(cuda):
 def test_decoder_on_card_matches_cpu(cuda, model, tmp_path):
     from cmusphinx_tpu_torch._host import write_mfc
     from cmusphinx_tpu_torch.api import Decoder
-    fx = fixture.build(0, small=True, model=model)
+    fx = fixture.build(0, model=model, size=fixture.SMALL)
     kw = fixture.write_model_dir(fx, str(tmp_path))
     gpu, cpu = Decoder(device=cuda, **kw), Decoder(device="cpu", **kw)
     before = fused_mixture_scores.launches
@@ -225,3 +228,65 @@ def test_decoder_on_card_matches_cpu(cuda, model, tmp_path):
         assert h.words == cpu.decode_cep_file(path).words == fx.transcripts[i]
     launched = fused_mixture_scores.launches - before
     assert (launched > 0) == (model == "cont")
+
+
+# ---- the LM backends and the large-vocabulary searches (MEDIUM) ----------
+
+def _lm_queries(lm, n=700):
+    rng = np.random.RandomState(4)
+    V = lm.n_words
+    w1, w2 = rng.randint(-1, V, (2, n))
+    w3 = rng.randint(0, V, n)
+    tg_b = np.repeat(np.arange(len(lm.bg_wid)), np.diff(lm.tg_ptr))
+    bg_w1 = np.repeat(np.arange(V), np.diff(lm.bg_ptr))
+    k = rng.randint(0, len(lm.tg_wid), n // 2)
+    w1[: n // 2], w2[: n // 2] = bg_w1[tg_b[k]], lm.bg_wid[tg_b[k]]
+    w3[: n // 2] = lm.tg_wid[k]
+    return [torch.as_tensor(a) for a in (w1, w2, w3)]
+
+
+@pytest.mark.parametrize("size", ["SMALL", "MEDIUM"])
+def test_lm_backends_on_card_match_cpu(cuda, size):
+    from cmusphinx_tpu_torch.models.ngram_device import DeviceNgram
+    lm = fixture.build(0, size=getattr(fixture, size)).lm
+    cpu, gpu = DeviceNgram(lm, device="cpu"), DeviceNgram(lm, device=cuda)
+    for d in (cpu, gpu):
+        if not d.hashed:
+            d._build_hash(lm, d.bg_ptr.device)
+    q = _lm_queries(lm)
+    qg = [a.to(cuda) for a in q]
+    pairs = [(gpu.score_tg_hashed(*qg), cpu.score_tg_hashed(*q)),
+             (gpu.score_rows(qg[0], qg[1]), cpu.score_rows(q[0], q[1])),
+             (gpu.score_bg(qg[1], qg[2]), cpu.score_bg(q[1], q[2]))]
+    if cpu.probe:
+        pairs.append((gpu.score_tg_probe(*qg), cpu.score_tg_probe(*q)))
+    if cpu.tg_dense is not None:
+        pairs.append((gpu.score_tg(*qg), cpu.score_tg(*q)))
+    for d in (cpu, gpu):
+        d.probe = d.hashed = False
+        d.tg_dense = None
+    pairs.append((gpu.score_tg(*qg), cpu.score_tg(*q)))      # CSR
+    assert gpu.calls["csr"] == 1
+    for got, want in pairs:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("lexmode", ["flat", "tree"])
+def test_large_vocab_decode_on_card_matches_cpu(cuda, lexmode):
+    fx = fixture.build(0, size=fixture.MEDIUM)
+    runs = []
+    for dev in (cuda, "cpu"):
+        s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                        ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
+                        device=dev, lexmode=lexmode)
+        assert s._fast and s._tree == (lexmode == "tree")
+        hyps = s.decode_batch_cep(fx.ceps, FeatPipeline(fx.feat_config(),
+                                                        device=dev))
+        runs.append((hyps, [a.cpu().numpy() for a in s._last_batch[0]]))
+    (gh, gt), (ch, ct) = runs
+    for a, b in zip(gt, ct):
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert [h.words for h in gh] == [h.words for h in ch] == fx.transcripts

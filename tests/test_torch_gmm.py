@@ -194,7 +194,7 @@ def test_convert_continuous_round_trip(mode):
 
 
 def test_convert_ngram_round_trip():
-    fx = fixture.build(0, small=True)
+    fx = fixture.build(0, size=fixture.SMALL)
     jd = JaxNgram(fx.lm)
     carried = convert.ngram_from_jax(np.asarray(jd.tg_dense), device="cpu")
     direct = DeviceNgram(fx.lm, device="cpu")

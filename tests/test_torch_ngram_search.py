@@ -29,7 +29,7 @@ TAPES = ("tw", "tsc", "tprev", "th2", "th1", "trc")
 
 @pytest.fixture(scope="module")
 def fx():
-    return fixture.build(0, small=True)
+    return fixture.build(0, size=fixture.SMALL)
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +76,69 @@ def _first_diff(a, b, E):
         return None
     u, slot = int(bad[0][0]), int(bad[0][1])
     return f"utt {u} frame {slot // E} slot {slot % E}"
+
+
+def assert_tapes_match(got, want, E):
+    """Tapes [B, n_slots(, Vr)] of the port against the reference's:
+    integer tapes equal, float tapes within rtol 1e-5; a failure names the
+    first utterance, frame and slot that differ."""
+    for name, a, b in zip(TAPES, got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, name
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=0,
+                                       err_msg=f"{name} {_first_diff(a, b, E)}")
+        else:
+            assert np.array_equal(a, b), f"{name} {_first_diff(a, b, E)}"
+
+
+def assert_hyps_match(got, want):
+    for h, j in zip(got, want, strict=True):
+        assert h.words == j.words
+        assert [(s.word, s.start_frame, s.end_frame) for s in h.segments] == \
+            [(s.word, s.start_frame, s.end_frame) for s in j.segments]
+        assert h.score == pytest.approx(j.score, rel=1e-5)
+
+
+def assert_search_matches_reference(fx, js, ts, jfp, fp, single=1):
+    """Both packages' searches over the same fixture: `decode_batch_cep`
+    against the reference's batched program, and `decode` of utterance
+    `single` against the reference's unbatched `decode`: tapes, chase
+    arrays and hypotheses.  Returns the batched hypotheses and tapes."""
+    E = js.E
+    jhyps = js.decode_batch_cep(fx.ceps, jfp)
+    jtapes = [np.asarray(a) for a in js._last_batch[0]]
+    Ts = [len(c) for c in fx.ceps]
+    cpad = np.zeros((len(Ts), jtapes[0].shape[1] // E, fx.ceps[0].shape[1]),
+                    np.float32)
+    for i, c in enumerate(fx.ceps):
+        cpad[i, : len(c)] = c
+    _, jchase = js._batch_cep_fn(jnp.asarray(cpad),
+                                 jnp.asarray(Ts, dtype=jnp.int32))
+    hyps = ts.decode_batch_cep(fx.ceps, fp)
+    tapes = [a.numpy() for a in ts._last_batch[0]]
+    assert_tapes_match(tapes, jtapes, E)
+    chase = ts.device_backtrace(ts._last_batch[0], torch.as_tensor(Ts))
+    np.testing.assert_allclose(chase.numpy(), np.asarray(jchase), rtol=1e-5,
+                               atol=0)
+    np.testing.assert_array_equal(chase[:, :3].numpy(),
+                                  np.asarray(jchase)[:, :3])
+    assert_hyps_match(hyps, jhyps)
+
+    feats = np.asarray(fp.compute(fx.ceps[single]))
+    jh = js.decode(feats)
+    h = ts.decode(feats)
+    assert_tapes_match(ts._last_batch[0], [a[None] for a in js._last[:6]], E)
+    T = js._last[6]
+    fpad = np.zeros((-(-T // 100) * 100, feats.shape[1]), np.float32)
+    fpad[:T] = feats
+    _, jc = js._single_fn(jnp.asarray(fpad), jnp.arange(len(fpad)) < T,
+                          jnp.int32(T))
+    c = ts.device_backtrace(ts._last_batch[0], torch.as_tensor([T]))
+    np.testing.assert_allclose(c[0].numpy(), np.asarray(jc), rtol=1e-5,
+                               atol=0)
+    assert_hyps_match([h], [jh])
+    return hyps, tapes
 
 
 @pytest.mark.parametrize("name", TAPES)
@@ -128,13 +191,14 @@ def test_decode_batch_and_decode_agree_with_batch_cep(decoded, fx, port):
 def test_unported_options_raise(fx, port):
     s, fp = port
     sc = s.scorer
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A10b"):
         NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device="cpu",
-                    rcmode="composite")
-    with pytest.raises(NotImplementedError):
+                    rcmode="composite", lcmode="composite", lexmode="tree",
+                    nlextree=2)
+    with pytest.raises(NotImplementedError, match="A12"):
         NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device="cpu",
-                    pl_window=3)
-    with pytest.raises(NotImplementedError):
+                    pl_window=5)
+    with pytest.raises(NotImplementedError, match="A11"):
         s.decode_batch_cep(fx.ceps, fp, bestpath=True)
 
 
@@ -156,7 +220,7 @@ def test_semicontinuous_slice_matches_reference(model):
     1e-5."""
     from cmusphinx_tpu.ops.gmm import PsParityScorer as JaxPs
     from cmusphinx_tpu_torch.ops import PsParityScorer
-    fx = fixture.build(0, small=True, model=model)
+    fx = fixture.build(0, model=model, size=fixture.SMALL)
     raw, meta = fixture.sendump_bytes(fx)
     sl = fx.stream_slices()
     wrap = meta["n_bits"] == 4

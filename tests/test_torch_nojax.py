@@ -17,22 +17,35 @@ from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import ContinuousScorer
-fx = fixture.build(0, small=True)
+fx = fixture.build(0, size=fixture.SMALL)
 sc = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
 s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device="cpu")
 hyps = s.decode_batch_cep(fx.ceps, FeatPipeline(fx.feat_config(), device="cpu"))
+ok = [[h.words for h in hyps] == fx.transcripts]
+# The large-vocabulary searches: static-senone flat and prefix tree over
+# the hashed and row LM backends.
+m = fixture.build(0, size=fixture.MEDIUM)
+msc = ContinuousScorer(m.gauden, m.ln_mixw, device="cpu")
+mfp = FeatPipeline(m.feat_config(), device="cpu")
+for lex in ("flat", "tree"):
+    ms = NgramSearch(m.lm, m.dict, m.mdef, m.tmat, msc, device="cpu",
+                     lexmode=lex)
+    ok.append([h.words for h in ms.decode_batch_cep(m.ceps, mfp)]
+              == m.transcripts)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
-print("WORDS", [h.words for h in hyps] == fx.transcripts)
+print("WORDS", ok)
 """
 
 
 def test_decodes_with_jax_blocked():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # One intra-op thread: the decode is many small ops a frame, and more
+    # threads only contend with the other test workers.
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _DECODE_WITHOUT_JAX], env=env,
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert "WORDS True" in r.stdout
+    assert "WORDS [True, True, True]" in r.stdout
 
 
 _DECODER_WITHOUT_JAX = r"""
@@ -44,7 +57,7 @@ from cmusphinx_tpu_torch._host import write_mfc
 from cmusphinx_tpu_torch.api import Decoder
 ok = []
 for model in ("cont", "semi"):
-    fx = fixture.build(0, small=True, model=model)
+    fx = fixture.build(0, model=model, size=fixture.SMALL)
     with tempfile.TemporaryDirectory() as tmp:
         d = Decoder(device="cpu", **fixture.write_model_dir(fx, tmp))
         write_mfc(tmp + "/u.mfc", fx.ceps[0])
@@ -70,7 +83,7 @@ def test_decoder_runs_with_jax_blocked():
 def test_no_source_file_imports_jax():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     files = sorted((ROOT / "cmusphinx_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 10
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
