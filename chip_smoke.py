@@ -10,9 +10,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card, its power limit, torch / CUDA / nvcc versions.
 2. build: compile kernel K1 (csrc/fused_gmm.cu) for sm_90a into build/.
-3. K1 against its plain PyTorch version at S=5150, K=32, D=39, T=2000 in
-   each -gmmprec mode, with magnitude-scaled bounds (see `check_k1`), on a
-   unit-scale model and on a floored-variance model; times of both.
+3. K1 against its plain PyTorch version and against float64 at S=5150,
+   K=32, D=39 in each -gmmprec mode, with magnitude-scaled bounds (see
+   `SAME_MODE`, `MODE_BOUND`), on a unit-scale model at T=2000 and at the
+   main path's T=9,600 and on a floored-variance model at T=2000; at both
+   unit shapes the times (CUDA events) of K1, of its plain version and of
+   the cuBLAS route (`library_route`), and K1's bound (`k1_bound`).
 4. the slice: the seeded hub4-class fixture (cmusphinx_tpu_torch.fixture,
    16 utterances) through NgramSearch.decode_batch_cep with K1, its launch
    count, hypotheses against the plain scorer's on the card, WER and xRT.
@@ -67,7 +70,6 @@ import numpy as np
 import torch
 
 from cmusphinx_tpu_torch import fixture
-from cmusphinx_tpu_torch._host import write_mfc
 from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend
@@ -75,16 +77,30 @@ from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
                                      SemiContinuousScorer, fused_gmm)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
+from cmusphinx_tpu_torch.utils.bio import write_mfc
 
 SEED = 0
 S, K, D, T_K1 = 5150, 32, 39, 2000
+# The main path's batch: 16 utterances padded to 600 frames.
+T_MAIN = 16 * 600
 MODES = ("highest", "high", "bf16")
 # Error bounds, as multiples of M[t,s] = max_k(|const| + sum|x lin| +
-# sum x^2 quad): kernel against plain in one mode differ only in the order
-# of f32 sums (D * 2^-22); each mode against a float64 evaluation.
-SAME_MODE = D * 2.0 ** -22
+# sum x^2 quad).  Each mode against a float64 evaluation: MODE_BOUND.
+# Kernel against plain: in "high" and "bf16" the same products, the f32
+# sums in another order (D * 2^-22); in "highest" the kernel's 3xTF32
+# products against the plain version's IEEE f32 ones, within the sum of
+# the two sides' float64 bounds (2 * D * 2^-22).
 MODE_BOUND = {"highest": D * 2.0 ** -22, "high": 2.0 ** -14,
               "bf16": 2.0 ** -6}
+SAME_MODE = {"highest": 2 * D * 2.0 ** -22, "high": D * 2.0 ** -22,
+             "bf16": D * 2.0 ** -22}
+# The card's peaks for K1's bound (H100 SXM at 700 W, NVIDIA's data
+# sheet): tensor cores 495 TFLOP/s tf32, 989 bf16; 3.35 TB/s of memory;
+# exps on the special-function units, 16 a clock on each of 132 SMs at
+# 1.83 GHz (~3.9e12/s).
+PEAK_FLOPS = {"tf32": 495e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+PEAK_EXPS = 16 * 132 * 1.83e9
 DECODE_PASSES = 5
 T_SEMI, TOPN = 2000, 4
 # Share of (t, s) whose PsParityScorer score may differ between the card
@@ -133,7 +149,7 @@ def phase_build() -> None:
 
 
 # ----------------------------------------------------------------------
-def gmm_case(rng, floored: bool):
+def gmm_case(rng, floored: bool, T: int = T_K1):
     """Senone-major f32 lin/quad [S, K, D], const [S, K] and frames x [T, D]
     near the model.  `floored`: realistic cepstral means, variances spread
     over decades and floored at 1e-4 (prec up to 5e3), as trained models
@@ -153,9 +169,9 @@ def gmm_case(rng, floored: bool):
     lnw = np.log(rng.dirichlet(np.ones(K), size=S))
     lin = (2.0 * prec * means).astype(np.float32)
     const = (lrd + lnw - (prec * means * means).sum(-1)).astype(np.float32)
-    pick_s, pick_k = rng.randint(S, size=T_K1), rng.randint(K, size=T_K1)
+    pick_s, pick_k = rng.randint(S, size=T), rng.randint(K, size=T)
     x = (means[pick_s, pick_k]
-         + rng.randn(T_K1, D) * np.sqrt(var[pick_s, pick_k])).astype(np.float32)
+         + rng.randn(T, D) * np.sqrt(var[pick_s, pick_k])).astype(np.float32)
     return lin, prec, const, x
 
 
@@ -187,40 +203,84 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_k1(dev, floored: bool, modes) -> dict:
-    rng = np.random.RandomState(SEED + 1 + floored)
+def k1_bound(T: int, mode: str) -> tuple:
+    """(least ms, what bounds it) for K1 at [T, S, K, D] in one mode: the
+    larger of the bytes it must move (x, lin, quad and const read once, the
+    scores written once) over the memory rate, its tensor-core products
+    (three passes of 2*T*S*K*2D flops in "highest" and "high", one in
+    "bf16") over their peak, and its T*S*K exps over the exp rate."""
+    pbytes = 2 if mode == "bf16" else 4
+    nbytes = 4 * T * D + 2 * S * K * D * pbytes + 4 * S * K + 4 * T * S
+    flops = (1 if mode == "bf16" else 3) * 2 * T * S * K * 2 * D
+    ops_s = max(flops / PEAK_FLOPS["tf32" if mode == "highest" else "bf16"],
+                T * S * K / PEAK_EXPS)
+    if nbytes / PEAK_BYTES > ops_s:
+        return 1e3 * nbytes / PEAK_BYTES, "bytes"
+    return 1e3 * ops_s, "operations"
+
+
+def library_route(lin, quad, const):
+    """The cuBLAS yardstick, which the port never calls: one IEEE-f32
+    matmul of [x | x^2] by [lin | -quad]^T (with const added), then
+    torch.logsumexp over K."""
+    b = torch.cat([lin.float(), -quad.float()], -1).reshape(S * K, 2 * D)
+    c = const.reshape(1, S * K)
+
+    def run(x):
+        a = torch.cat([x, x * x], 1)
+        return torch.logsumexp(torch.addmm(c, a, b.T).view(-1, S, K), -1)
+    return run
+
+
+def check_k1(dev, floored: bool, modes, T: int = T_K1,
+             timed: bool = True) -> dict:
+    rng = np.random.RandomState(SEED + 1 + floored + (T != T_K1) * 10)
     lin, quad, const, x = (torch.as_tensor(a, device=dev)
-                           for a in gmm_case(rng, floored))
+                           for a in gmm_case(rng, floored, T))
     M, exact = magnitude_and_exact(x, lin, quad, const)
+    lib = library_route(lin, quad, const) if timed else None
     results = {}
     for mode in modes:
-        ptype = torch.bfloat16 if mode == "bf16" else torch.float32
-        lp, qp = lin.to(ptype), quad.to(ptype)
-        got = fused_mixture_scores(x, lp, qp, const, mode)
+        sc = ContinuousScorer.from_params(
+            lin.cpu().numpy(), quad.cpu().numpy(), const.cpu().numpy(),
+            precision=mode, device=dev)
+        lp, qp, pk = sc.lin, sc.quad, sc.packed
+        got = fused_mixture_scores(x, lp, qp, const, mode, packed=pk)
         ref = fused_mixture_scores_ref(x, lp, qp, const, mode)
         torch.cuda.synchronize()
-        if not (torch.isfinite(got).all() and got.shape == (T_K1, S)):
+        if not (torch.isfinite(got).all() and got.shape == (T, S)):
             raise AssertionError(f"K1 {mode}: bad output")
         err_p = (got.double() - ref.double()).abs()
         err_x = (got.double() - exact).abs()
+        err_r = (ref.double() - exact).abs()
         r = {"max_abs_err": float(err_p.max()),
-             "worst_err_over_bound": float((err_p / (SAME_MODE * M)).max()),
+             "worst_err_over_bound": float((err_p / (SAME_MODE[mode] * M)
+                                            ).max()),
              "max_abs_err_vs_fp64": float(err_x.max()),
              "worst_fp64_err_over_bound":
                  float((err_x / (MODE_BOUND[mode] * M)).max()),
-             "ms": cuda_ms(lambda: fused_mixture_scores(x, lp, qp, const,
-                                                        mode)),
-             "plain_ms": cuda_ms(lambda: fused_mixture_scores_ref(
-                 x, lp, qp, const, mode))}
+             "plain_worst_fp64_err_over_bound":
+                 float((err_r / (MODE_BOUND[mode] * M)).max())}
+        if timed:
+            bound_ms, bound_by = k1_bound(T, mode)
+            r.update({
+                "ms": cuda_ms(lambda: fused_mixture_scores(
+                    x, lp, qp, const, mode, packed=pk)),
+                "plain_ms": cuda_ms(lambda: fused_mixture_scores_ref(
+                    x, lp, qp, const, mode)),
+                "library_ms": cuda_ms(lambda: lib(x)),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            r["share"] = r["bound_ms"] / r["ms"]
         emit({"phase": "k1", "model": "floored" if floored else "unit",
-              "mode": mode, "S": S, "K": K, "D": D, "T": T_K1, **r})
+              "mode": mode, "S": S, "K": K, "D": D, "T": T, **r})
         if r["worst_err_over_bound"] > 1.0:
             raise AssertionError(f"K1 {mode}: kernel and plain version "
-                                 f"disagree beyond D*2^-22*M: {r}")
+                                 f"disagree beyond their bound: {r}")
         if r["worst_fp64_err_over_bound"] > 1.0:
             raise AssertionError(f"K1 {mode}: error against float64 beyond "
                                  f"the mode's bound: {r}")
         results[mode] = r
+        del sc, lp, qp, pk
     return results
 
 
@@ -686,8 +746,9 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     phase_build()
-    k1 = check_k1(dev, floored=False, modes=MODES)
-    check_k1(dev, floored=True, modes=("highest", "high"))
+    check_k1(dev, floored=False, modes=MODES)
+    check_k1(dev, floored=True, modes=MODES, timed=False)
+    k1 = check_k1(dev, floored=False, modes=MODES, T=T_MAIN)
     cont = fixture.build(SEED)
     sl = phase_slice(dev, cont)
     semi = fixture.build(SEED, model="semi")
@@ -719,7 +780,9 @@ def main() -> int:
         "launches": (sl["k1_launches"] + dec["k1_launches"]
                      + tree["k1_launches"]),
         "max_abs_err": main_mode["max_abs_err"],
-        "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"]}]})
+        "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"],
+        "bound_ms": main_mode["bound_ms"], "bound_by": main_mode["bound_by"],
+        "library_ms": main_mode["library_ms"]}]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

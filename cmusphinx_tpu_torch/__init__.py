@@ -1,9 +1,11 @@
 """cmusphinx_tpu_torch — the PyTorch + CUDA port of cmusphinx_tpu.
 
 The JAX package `cmusphinx_tpu` stays the reference; this package holds the
-port, slice by slice (ROADMAP.md).  It imports torch and never JAX: the
-host-only readers it shares with the reference are reached through
-`_host.py`.
+port, slice by slice (ROADMAP.md).  It imports torch and never JAX, and
+nothing of the reference package: it carries its own copies of the numpy-only
+host code — the model readers and writers (`models/`), binary I/O,
+configuration and log-domain constants (`utils/`), the LM estimator
+(`lm/estimate.py`) and the lexicon-graph builder (`decode/lexgraph.py`).
 
 Ported so far: the batched N-gram decode path `NgramSearch.decode_batch_cep`
 with a continuous-density acoustic model — the batch feature kernel, the

@@ -15,7 +15,8 @@ gives the bit-faithful `PsParityScorer` (or, with `-parity no`,
 gives `SemiContinuousScorer`, one codebook per senone `ContinuousScorer`
 (kernel K1 on CUDA), one per CI phone `PTMScorer`; `-lambda` wraps it in
 `InterpolatedScorer`.  `device` says where the scorer, the feature
-pipeline, the frontend and the search live.
+pipeline, the frontend and the search live: the card ("cuda") unless the
+caller asks for "cpu".
 
 Not ported yet, and raising NotImplementedError: streaming utterances and
 lattices, n-best lists and posteriors (ROADMAP A11), the grammar, allphone
@@ -30,9 +31,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ._host import (Arg, Config, Dictionary, Mdef, MllrTransform, NgramModel,
-                    NgramModelSet, TransitionMatrices, read_gauden, read_mfc,
-                    read_mixture_weights, read_sendump)
+from .models.dict import Dictionary
+from .models.gauden import read_gauden
+from .models.lmset import NgramModelSet
+from .models.mdef import Mdef
+from .models.mllr import MllrTransform
+from .models.ngram import NgramModel
+from .models.sendump import read_mixture_weights, read_sendump
+from .models.tmat import TransitionMatrices
+from .utils.bio import read_mfc
+from .utils.config import Arg, Config
 from .decode.ngram_search import NGRAM_ARGS, NgramSearch
 from .decode.results import Hypothesis, Segment
 from .frontend.fe import FE_ARGS, Frontend
@@ -94,7 +102,7 @@ class Decoder:
     """Speech decoder over one acoustic model + the N-gram search."""
 
     def __init__(self, config: Optional[Config] = None, *,
-                 device: torch.device | str, **kwargs):
+                 device: torch.device | str = "cuda", **kwargs):
         cfg = (config.copy() if config else
                Config(DECODER_ARGS, FE_ARGS, FEAT_ARGS, NGRAM_ARGS))
         cfg.register(DECODER_ARGS).register(FE_ARGS).register(FEAT_ARGS)

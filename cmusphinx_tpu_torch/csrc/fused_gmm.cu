@@ -1,4 +1,5 @@
-// Fused continuous-GMM senone scoring for Hopper (sm_90a).
+// Fused continuous-GMM senone scoring for Hopper (sm_90a), on the tensor
+// cores.
 //
 // Replaces the Pallas TPU kernel cmusphinx_tpu/ops/pallas_gmm.py::_kernel
 // (launched by fused_mixture_scores_packed).  For every frame t and senone s
@@ -6,33 +7,73 @@
 //   score[t, s] = logsumexp_k( const[s,k] + x_t . lin[s,k,:] - x_t^2 . quad[s,k,:] )
 //
 // with lin = 2 prec mean, quad = prec = 0.5/var, const = lrd + ln w - sum prec mean^2.
-// Only the [T, S] result is written: the [T, S*K] density matrix never
-// leaves the registers.
+// Only the [T, S] result is written: the [T, S*K] densities never leave
+// the registers.
 //
-// What bounds it on this card: the arithmetic.  Per (t, s) it does 2*K*D
-// fused multiply-adds (hub4 width: S=5150, K=32, D=39 gives 6.4e6 FMAs per
-// frame, 2.5e11 flops for 9,600 frames), against 4 bytes written and the
-// parameters (S*K*D*2 floats = 51 MB), which stay in the 50 MB L2 for the
-// most part.  D = 13..51 is too shallow for an efficient tensor-core tile,
-// and two of the three precision modes need exact fp32 or bf16x3
-// arithmetic, so this first version runs on the fp32 CUDA cores:
-//   - a block owns 128 frames x 8 senones; one warp per senone, each lane
-//     4 frames (lane + 32 i), so the parameter loads of a warp are uniform
-//     (one broadcast transaction) and reused across 4 frames;
-//   - the tile's x and x^2 (and their bf16 hi/lo parts in "high" mode) are
-//     staged in shared memory with an odd row stride, so the 32 lanes of a
-//     warp read 32 different banks;
-//   - mixtures are taken 8 at a time: 2 x 8 x 4 fp32 accumulators, then a
-//     max-then-sum log-sum-exp merged into a running (max, sum) per frame.
-// Tensor cores (wgmma at D padded to 48), TMA staging and a transposed,
-// coalesced output store are later work.
+// What bounds it.  At the hub4 width (S=5150, K=32, D=39) and T=2000 the
+// products are 2*T*S*K*D = 25.7 G multiply-adds (51.4 GFLOP) and the
+// log-sum-exp T*S*K = 330 M exps, against ~93 MB of bytes (0.03 ms at
+// 3.35 TB/s): arithmetic, not memory.  The least time of each mode:
+//   highest  3xTF32 on the tensor cores at 495 TFLOP/s        0.31 ms
+//   high     3 bf16 products at 989 TFLOP/s                   0.16 ms
+//   bf16     the exps on the special-function units (~3.9 T/s) 0.085 ms
+//            (one bf16 product alone would take 0.05 ms)
 //
-// Precision modes (template parameter), as in ops/gmm.py -gmmprec:
-//   0 highest: IEEE fp32 products and sums.
-//   1 high:    each operand split into bf16 hi and lo (round to nearest even),
-//              a.b ~= ah.bh + ah.bl + al.bh, every product exact in fp32.
-//   2 bf16:    bf16 parameters, bf16(x) and bf16(x*x) (squared in fp32 first),
-//              fp32 accumulation.
+// The design.
+//   - One product, not two: A = [x | x^2] per frame and B = [lin | -quad]
+//     per density, each over a depth Dp = 2D rounded up to 16 (80 at
+//     D=39), zero-padded.
+//   - B is packed once, at scorer construction (ops/fused_gmm.py
+//     pack_params), into senone tiles of N densities that are byte images
+//     of the shared-memory operand: each part (hi, lo) in the wgmma
+//     no-swizzle K-major core-matrix layout ([N/8][Dp*E/16] cores of 8 rows
+//     x 16 bytes).  The consts sit in an array of their own.  K is padded
+//     to a power of two Kp >= 8 (pad densities carry const -1e30, the
+//     reference's _PAD_CONST), S to whole tiles.  The hi/lo split is done
+//     there, so the inner loop does no splitting.
+//   - A block has WG consumer warpgroups of 64 frames each (2 in highest,
+//     3 in high and bf16) and one producer warp.  The consumers stage
+//     their frames' [x | x^2] (split per mode) in shared memory once.  The
+//     producer streams the block's senone tiles into a ring of up to 4
+//     stages, one bulk copy (cp.async.bulk, the TMA engine) per tile,
+//     completed on an mbarrier; the consumers free a stage on a second
+//     mbarrier as soon as their products are done.
+//   - Per tile each warpgroup issues wgmma (A and B from shared memory),
+//     the k-steps unrolled (one instantiation per depth):
+//       highest  tf32 m64n64k8,   hi.lo + lo.hi + hi.hi
+//       high     bf16 m64n128k16, hi.lo + lo.hi + hi.hi
+//       bf16     bf16 m64n128k16, one product
+//     N is 64 in highest so that the f32 hi and lo parts of A (80 KB at
+//     D=39) and three stages of B fit the 227 KB of shared memory.
+//   - The epilogue stays in the accumulator registers and adds the consts
+//     (read from L2 while the tile is awaited) as it reads them: in the
+//     wgmma layout a senone's Kp columns of one frame lie in the 4 lanes
+//     of a quad, so each thread takes the max over its columns, two
+//     shuffles make it the quad's, then the exps, their sum, two more
+//     shuffles and one log, for all senones of the tile at once.  A senone
+//     wider than a tile (Kp > N) carries a running (max, sum) across its
+//     tiles.  Results are staged in shared memory and written as rows of
+//     32 senones (128 bytes) of out[T, S].
+//   - The grid is (frame blocks) x (senone ranges), about four blocks per
+//     SM, instead of persistent blocks: a block costs one staging of its
+//     frames, and the split keeps the 132 SMs busy at T = 2000 as at
+//     T = 9,600.  The warpgroups of a block interleave their tensor-core
+//     work and their exps on the SM's schedulers.  Tried and dropped (no
+//     faster on the H100): two accumulators per warpgroup overlapping one
+//     tile's epilogue with the next tile's products, a deeper ring, split
+//     bulk copies, 4 warpgroups (register spills), the consts read from
+//     the shared-memory stage.
+//   - What holds it back (builds with parts cut out, PERF.md): without the
+//     epilogue the time is the same, and without the products too a
+//     large part stays: the per-tile pipeline, not the arithmetic, sets
+//     the time of "high" and "bf16".
+//
+// Numerics (ops/fused_gmm.py and PERF.md hold the bounds):
+//   0 highest: each operand split into tf32 hi = rn(a), lo = rn(a - hi) (10
+//              mantissa bits, round to nearest even); a.b ~= ah.bh + ah.bl +
+//              al.bh, error ~3 * 2^-22 of |a.b| per product, f32 accumulation.
+//   1 high:    the same split into bf16 hi and lo.
+//   2 bf16:    bf16 parameters, bf16(x) and bf16(x*x) (squared in f32 first).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_gmm.so fused_gmm.cu
@@ -45,188 +86,522 @@
 
 namespace {
 
-constexpr int LANES = 32;           // frames across a warp
-constexpr int FT = 4;               // frames per thread
-constexpr int WARPS = 8;            // senones per block, one per warp
-constexpr int KC = 8;               // mixtures per register chunk
-constexpr int BT = LANES * FT;      // frames per block
-
 enum Mode { HIGHEST = 0, HIGH = 1, BF16 = 2 };
 
-__device__ __forceinline__ float load_param(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_param(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
+// N: densities per senone tile; E: bytes per operand element; P: parts;
+// WG: consumer warpgroups (64 frames each).
+template <int MODE> struct Cfg;
+template <> struct Cfg<HIGHEST> {
+  static constexpr int N = 64, NLOG = 6, E = 4, P = 2, WG = 2;
+};
+template <> struct Cfg<HIGH> {
+  static constexpr int N = 128, NLOG = 7, E = 2, P = 2, WG = 3;
+};
+template <> struct Cfg<BF16> {
+  static constexpr int N = 128, NLOG = 7, E = 2, P = 1, WG = 3;
+};
+
+constexpr int SB = 32;                   // senones staged per output flush
+constexpr int SROW = SB + 1;             // staged row stride (floats)
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_LIMIT = 232448;
+constexpr int OUT_OFF = 128;            // after the 2 x MAX_STAGES mbarriers
+
+// The geometry of one mode and depth: the block's frames and threads;
+// Dp = KS k-steps of 32 bytes; the tile's bytes, its stride in the ring,
+// and the ring's stages in the shared memory left after the mbarriers,
+// the staged outputs and A.
+template <int MODE, int KS> struct Geom {
+  static constexpr int N = Cfg<MODE>::N, E = Cfg<MODE>::E, P = Cfg<MODE>::P;
+  static constexpr int WG = Cfg<MODE>::WG;
+  static constexpr int BM = 64 * WG;               // frames per block
+  static constexpr int CONSUMERS = 128 * WG;
+  static constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+  static constexpr int A_OFF = (OUT_OFF + BM * SROW * 4 + 127) / 128 * 128;
+  static constexpr int DP = KS * 32 / E;
+  static constexpr int TILE_BYTES = P * N * DP * E;
+  static constexpr int STRIDE = (TILE_BYTES + 127) / 128 * 128;
+  static constexpr int FIXED = A_OFF + P * BM * DP * E;
+  static constexpr int FREE = (SMEM_LIMIT - FIXED) / STRIDE;
+  static constexpr int STAGES = FREE < MAX_STAGES ? FREE : MAX_STAGES;
+  static constexpr int SMEM = FIXED + STAGES * STRIDE;
+};
+
+// ---- PTX wrappers ----------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float bf16_round(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-template <int MODE, typename P>
-__global__ void __launch_bounds__(LANES * WARPS)
-fused_gmm_kernel(const float* __restrict__ x, const P* __restrict__ lin,
-                 const P* __restrict__ quad, const float* __restrict__ cst,
-                 float* __restrict__ out, int T, int S, int K, int D, int ds) {
-  // Planes of [BT][ds] floats: x, x^2 (rounded per mode); in HIGH mode
-  // also the lo parts of x and x^2.
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sx2 = smem + BT * ds;
-  float* sxl = smem + 2 * BT * ds;
-  float* sx2l = smem + 3 * BT * ds;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  const int t0 = blockIdx.x * BT;
-  const int tid = threadIdx.y * LANES + threadIdx.x;
-  for (int i = tid; i < BT * D; i += LANES * WARPS) {
-    const int r = i / D, d = i - r * D;
-    const int t = t0 + r;
-    const float v = t < T ? x[(size_t)t * D + d] : 0.0f;
-    const float v2 = v * v;
-    const int o = r * ds + d;
-    if (MODE == HIGHEST) {
-      sx[o] = v;
-      sx2[o] = v2;
-    } else if (MODE == HIGH) {
-      const float h = bf16_round(v), h2 = bf16_round(v2);
-      sx[o] = h;
-      sx2[o] = h2;
-      sxl[o] = bf16_round(v - h);
-      sx2l[o] = bf16_round(v2 - h2);
-    } else {
-      sx[o] = bf16_round(v);
-      sx2[o] = bf16_round(v2);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy global -> shared, completed on `bar` (the TMA engine).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, leading byte
+// offset 128 (the next core matrix along K), stride byte offset `sbo` (the
+// next 8 rows).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define D16(i) D4(i), D4(i + 4), D4(i + 8), D4(i + 12)
+
+// acc [64 x 64] (+)= A [64 x 8] . B [64 x 8]^T, tf32 operands.
+__device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                    int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : D16(0), D16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// acc [64 x 128] (+)= A [64 x 16] . B [128 x 16]^T, bf16 operands.
+__device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                    int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D16(0), D16(16), D16(32), D16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef D16
+#undef D4
+
+// ---- operand rounding --------------------------------------------------
+__device__ __forceinline__ float tf32_rn(float v) {
+  uint32_t b = __float_as_uint(v);
+  b += 0xFFFu + ((b >> 13) & 1u);
+  return __uint_as_float(b & 0xFFFFE000u);
+}
+
+template <int MODE>
+__device__ __forceinline__ void put_a(uint8_t* a, int part_bytes, int off,
+                                      float v) {
+  if (MODE == HIGHEST) {
+    const float h = tf32_rn(v);
+    *reinterpret_cast<float*>(a + off) = h;
+    *reinterpret_cast<float*>(a + part_bytes + off) = tf32_rn(v - h);
+  } else if (MODE == HIGH) {
+    const __nv_bfloat16 h = __float2bfloat16_rn(v);
+    *reinterpret_cast<__nv_bfloat16*>(a + off) = h;
+    *reinterpret_cast<__nv_bfloat16*>(a + part_bytes + off) =
+        __float2bfloat16_rn(v - __bfloat162float(h));
+  } else {
+    *reinterpret_cast<__nv_bfloat16*>(a + off) = __float2bfloat16_rn(v);
+  }
+}
+
+// e^x on the special-function unit (ex2.approx), subnormal results flushed
+// to zero: their share of a sum of exps is below f32's resolution.  The
+// non-ftz form costs three more instructions an exp for its range fix.
+__device__ __forceinline__ float exp_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// ---- the epilogue --------------------------------------------------------
+// Log-sum-exp of one tile's densities (acc holds const + x.lin - x^2.quad)
+// over segments of CPS 8-column chunks, each segment one senone (or, with
+// CARRY, the part of a senone in this tile, merged into cm/cs).  Thread
+// (warp w, lane l) holds rows w*16 + l/4 (h=0) and +8 (h=1), columns
+// 8j + 2(l%4) + {0,1} of chunk j in acc[4j + 2h + {0,1}].  The steps run
+// over all segments at once (maxima, their shuffles, the exps, the sums'
+// shuffles, the logs) and without branches, so that the independent
+// segments hide each other's latencies.
+template <int N, int CPS, bool CARRY>
+__device__ __forceinline__ void lse_tile(const float (&acc)[N / 2],
+                                         const float2 (&cc)[N / 8],
+                                         float* row0, float* row1, int col0,
+                                         bool leader, bool last,
+                                         float (&cm)[2], float (&cs)[2]) {
+  constexpr int NCH = N / 8;
+  constexpr int NSEG = CPS <= NCH ? NCH / CPS : 1;
+  constexpr int CH = CPS <= NCH ? CPS : NCH;
+  // The density of (chunk j, row half h, column e): acc + const.
+  auto dens = [&](int j, int h, int e) {
+    return acc[4 * j + 2 * h + e] + (e ? cc[j].y : cc[j].x);
+  };
+  float m[NSEG][2], s[NSEG][2];
+#pragma unroll
+  for (int g = 0; g < NSEG; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = -INFINITY;
+#pragma unroll
+      for (int j = g * CH; j < (g + 1) * CH; ++j)
+        v = fmaxf(v, fmaxf(dens(j, h, 0), dens(j, h, 1)));
+      m[g][h] = v;
     }
+#pragma unroll
+  for (int k = 1; k <= 2; k <<= 1)
+#pragma unroll
+    for (int g = 0; g < NSEG; ++g)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        m[g][h] = fmaxf(m[g][h], __shfl_xor_sync(0xffffffffu, m[g][h], k));
+#pragma unroll
+  for (int g = 0; g < NSEG; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // Every density -inf: take 0 as the pivot, and the sum is 0.
+      m[g][h] = m[g][h] == -INFINITY ? 0.0f : m[g][h];
+      float v = 0.0f;
+#pragma unroll
+      for (int j = g * CH; j < (g + 1) * CH; ++j)
+        v += exp_fast(dens(j, h, 0) - m[g][h]) + exp_fast(dens(j, h, 1) - m[g][h]);
+      s[g][h] = v;
+    }
+#pragma unroll
+  for (int k = 1; k <= 2; k <<= 1)
+#pragma unroll
+    for (int g = 0; g < NSEG; ++g)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        s[g][h] += __shfl_xor_sync(0xffffffffu, s[g][h], k);
+#pragma unroll
+  for (int g = 0; g < NSEG; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float val = m[g][h] + __logf(s[g][h]);
+      if (CARRY) {
+        const float mm = fmaxf(cm[h], m[g][h]);
+        cs[h] = cs[h] * exp_fast(cm[h] - mm) + s[g][h] * exp_fast(m[g][h] - mm);
+        cm[h] = mm;
+        val = cm[h] + __logf(cs[h]);
+        if (last) {
+          cm[h] = -INFINITY;
+          cs[h] = 0.0f;
+        }
+      }
+      if (leader && (!CARRY || last)) (h ? row1 : row0)[col0 + g] = val;
+    }
+}
+
+// ---- the kernel ----------------------------------------------------------
+template <int MODE, int KS>
+__global__ void __launch_bounds__(Geom<MODE, KS>::THREADS, 1)
+fused_gmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ tiles,
+                 const float* __restrict__ cst,
+                 float* __restrict__ out, int T, int S, int D, int kp_log,
+                 int n_units, int tps_log) {
+  constexpr int N = Cfg<MODE>::N, NLOG = Cfg<MODE>::NLOG;
+  constexpr int E = Cfg<MODE>::E, P = Cfg<MODE>::P;
+  constexpr int EPC = 16 / E;                 // elements per core-matrix row
+  using G = Geom<MODE, KS>;
+  constexpr int Dp = G::DP, STAGES = G::STAGES, stride = G::STRIDE;
+  constexpr int tile_bytes = G::TILE_BYTES;
+  constexpr int WG = G::WG, BM = G::BM, CONSUMERS = G::CONSUMERS;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  float* out_stage = reinterpret_cast<float*>(smem + OUT_OFF);
+  uint8_t* a_smem = smem + G::A_OFF;
+  constexpr int KG = Dp / EPC;                // core matrices along the depth
+  constexpr int a_part = BM * Dp * E;
+  uint8_t* ring = a_smem + P * a_part;
+
+  // This block's frames and senone tiles.
+  const int t0 = blockIdx.x * BM;
+  const int u0 = static_cast<int>((int64_t)blockIdx.y * n_units / gridDim.y);
+  const int u1 = static_cast<int>((int64_t)(blockIdx.y + 1) * n_units / gridDim.y);
+  const int tile0 = u0 << tps_log;
+  const int n_my = (u1 - u0) << tps_log;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int s = blockIdx.y * WARPS + threadIdx.y;
-  if (s >= S) return;
-  const P* L = lin + (size_t)s * K * D;
-  const P* Q = quad + (size_t)s * K * D;
-  const float* C = cst + (size_t)s * K;
-
-  float run_max[FT], run_sum[FT];
-#pragma unroll
-  for (int f = 0; f < FT; ++f) {
-    run_max[f] = -INFINITY;
-    run_sum[f] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kn = min(KC, K - k0);
-    float a[KC][FT], b[KC][FT];
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk)
-#pragma unroll
-      for (int f = 0; f < FT; ++f) a[kk][f] = b[kk][f] = 0.0f;
-
-    for (int d = 0; d < D; ++d) {
-      float xv[FT], x2v[FT], xl[FT], x2l[FT];
-#pragma unroll
-      for (int f = 0; f < FT; ++f) {
-        const int o = (threadIdx.x + LANES * f) * ds + d;
-        xv[f] = sx[o];
-        x2v[f] = sx2[o];
-        if (MODE == HIGH) {
-          xl[f] = sxl[o];
-          x2l[f] = sx2l[o];
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        if (kk < kn) {
-          const float l = load_param(L + (size_t)(k0 + kk) * D + d);
-          const float q = load_param(Q + (size_t)(k0 + kk) * D + d);
-          if (MODE == HIGH) {
-            const float lh = bf16_round(l), ll = bf16_round(l - lh);
-            const float qh = bf16_round(q), ql = bf16_round(q - qh);
-#pragma unroll
-            for (int f = 0; f < FT; ++f) {
-              a[kk][f] = fmaf(xv[f], lh, a[kk][f]);
-              a[kk][f] = fmaf(xv[f], ll, a[kk][f]);
-              a[kk][f] = fmaf(xl[f], lh, a[kk][f]);
-              b[kk][f] = fmaf(x2v[f], qh, b[kk][f]);
-              b[kk][f] = fmaf(x2v[f], ql, b[kk][f]);
-              b[kk][f] = fmaf(x2l[f], qh, b[kk][f]);
-            }
-          } else {
-#pragma unroll
-            for (int f = 0; f < FT; ++f) {
-              a[kk][f] = fmaf(xv[f], l, a[kk][f]);
-              b[kk][f] = fmaf(x2v[f], q, b[kk][f]);
-            }
-          }
-        }
+  // The role, warp-uniform to the compiler (a shuffle), so that the
+  // consumers' wgmma are not taken for a divergent path and serialized.
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= CONSUMERS / 32) {               // the producer warp
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < n_my; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[st], tile_bytes);
+        bulk_load(ring + st * stride, tiles + (size_t)(tile0 + i) * tile_bytes,
+                  tile_bytes, &full[st]);
       }
     }
-
-    // Densities of this chunk, then its max-then-sum, merged into the
-    // running (max, sum) of each frame.
-#pragma unroll
-    for (int f = 0; f < FT; ++f) {
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        if (kk < kn) {
-          a[kk][f] = (C[k0 + kk] + a[kk][f]) - b[kk][f];
-          cmax = fmaxf(cmax, a[kk][f]);
-        }
-      }
-      float csum = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk)
-        if (kk < kn) csum += expf(a[kk][f] - cmax);
-      const float m = fmaxf(run_max[f], cmax);
-      run_sum[f] = run_sum[f] * expf(run_max[f] - m) + csum * expf(cmax - m);
-      run_max[f] = m;
-    }
+    return;
   }
 
+  // Stage A = [x | x^2] of the block's frames, split per mode: zero it,
+  // load the block's x (contiguous rows, all loads of a thread in flight
+  // at once), then write x and x^2 where they belong.
+  for (int i = threadIdx.x; i < P * a_part / 16; i += CONSUMERS)
+    reinterpret_cast<uint4*>(a_smem)[i] = make_uint4(0, 0, 0, 0);
+  constexpr int XPT = (BM * Dp / 2 + CONSUMERS - 1) / CONSUMERS;  // D <= Dp/2
+  const int n_x = (T - t0 < BM ? T - t0 : BM) * D;
+  float xv[XPT];
 #pragma unroll
-  for (int f = 0; f < FT; ++f) {
-    const int t = t0 + threadIdx.x + LANES * f;
-    if (t < T) out[(size_t)t * S + s] = run_max[f] + logf(run_sum[f]);
+  for (int j = 0; j < XPT; ++j) {
+    const int i = threadIdx.x + j * CONSUMERS;
+    xv[j] = i < n_x ? x[(size_t)t0 * D + i] : 0.0f;
+  }
+  named_sync(1, CONSUMERS);
+#pragma unroll
+  for (int j = 0; j < XPT; ++j) {
+    const int i = threadIdx.x + j * CONSUMERS;
+    if (i < n_x) {
+      const int r = i / D, k = i - r * D;
+      const int base = (r >> 3) * KG * 128 + (r & 7) * 16;
+      put_a<MODE>(a_smem, a_part, base + (k / EPC) * 128 + (k % EPC) * E, xv[j]);
+      put_a<MODE>(a_smem, a_part, base + ((k + D) / EPC) * 128 + ((k + D) % EPC) * E,
+                  xv[j] * xv[j]);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  named_sync(1, CONSUMERS);
+
+  const int wg = threadIdx.x / 128, w = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, q = (lane & 3) * 2;
+  const bool leader = (lane & 3) == 0;
+  const uint32_t sbo = KG * 128;
+  const uint32_t a_addr = smem_u32(a_smem) + wg * 8 * KG * 128;
+  float* sout = out_stage + wg * 64 * SROW;
+  float* row0 = sout + (w * 16 + lane / 4) * SROW;
+  float* row1 = row0 + 8 * SROW;
+
+  const bool carry = tps_log > 0;             // a senone spans several tiles
+  const int spt = carry ? 1 : 1 << (NLOG - kp_log);   // senones per tile
+  const int cps = (carry ? N : 1 << kp_log) / 8;      // chunks per senone
+  const int tmask = (1 << tps_log) - 1;
+  float cm[2] = {-INFINITY, -INFINITY}, cs[2] = {0.0f, 0.0f};
+  int nb = 0;                                  // senones staged
+  int sb0 = carry ? tile0 >> tps_log : tile0 * spt;
+
+  auto flush = [&]() {
+    named_sync(2 + wg, 128);
+    for (int rr = 0; rr < 16; ++rr) {
+      const int row = w * 16 + rr, t = t0 + wg * 64 + row;
+      if (t < T && lane < nb && sb0 + lane < S)
+        out[(size_t)t * S + sb0 + lane] = sout[row * SROW + lane];
+    }
+    named_sync(2 + wg, 128);
+    sb0 += nb;
+    nb = 0;
+  };
+
+  // Issue tile i's products into d (asynchronous: wait_group waits).
+  float2 cc[N / 8];
+  auto issue = [&](float (&d)[N / 2], int i) {
+    const int st = i % STAGES;
+    // This thread's consts of the tile, from global memory (L2): loaded
+    // before the wait, so that their latency hides behind it.
+    const float2* ct = reinterpret_cast<const float2*>(cst + (size_t)(tile0 + i) * N);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) cc[j] = __ldg(ct + 4 * j + q / 2);
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const uint32_t b_addr = smem_u32(ring + st * stride);
+    fence_regs(d);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    // Passes (A part, B part): hi.lo, lo.hi, hi.hi (small terms first).
+    constexpr int P0 = P == 2 ? 0 : 2;
+#pragma unroll
+    for (int p = P0; p < 3; ++p) {
+      const int pa = p == 1, pb = p == 0;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        mma(d, make_desc(a_addr + pa * a_part + ks * 256, sbo),
+            make_desc(b_addr + pb * N * Dp * E + ks * 256, sbo),
+            p != P0 || ks != 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  };
+  // Tile i's epilogue, once its products are in d.
+  auto finish = [&](float (&d)[N / 2], int i) {
+    const int tile = tile0 + i, st = i % STAGES;
+    fence_regs(d);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+
+    const bool first = (tile & tmask) == 0, last = (tile & tmask) == tmask;
+    if (first && nb + spt > SB) flush();
+    if (carry) {
+      lse_tile<N, N / 8, true>(d, cc, row0, row1, nb, leader, last, cm, cs);
+    } else {
+      switch (cps) {
+        case 1: lse_tile<N, 1, false>(d, cc, row0, row1, nb, leader, last, cm, cs); break;
+        case 2: lse_tile<N, 2, false>(d, cc, row0, row1, nb, leader, last, cm, cs); break;
+        case 4: lse_tile<N, 4, false>(d, cc, row0, row1, nb, leader, last, cm, cs); break;
+        case 8: lse_tile<N, 8, false>(d, cc, row0, row1, nb, leader, last, cm, cs); break;
+        default: lse_tile<N, 16, false>(d, cc, row0, row1, nb, leader, last, cm, cs); break;
+      }
+    }
+    if (last) nb += spt;
+  };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) acc[j] = 0.0f;
+  for (int i = 0; i < n_my; ++i) {
+    issue(acc, i);
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    finish(acc, i);
+  }
+  flush();
+}
+
+template <int MODE, int KS>
+int launch(const float* x, const uint8_t* tiles, const float* cst, float* out,
+           int T, int S, int D, int kp_log, int n_tiles, int tile_bytes,
+           cudaStream_t stream) {
+  using G = Geom<MODE, KS>;
+  constexpr int N = Cfg<MODE>::N, NLOG = Cfg<MODE>::NLOG;
+  if constexpr (G::STAGES < 1) {
+    return (int)cudaErrorInvalidValue;        // D too wide for this mode
+  } else {
+    const int tps_log = kp_log > NLOG ? kp_log - NLOG : 0;
+    if (tile_bytes != G::TILE_BYTES || (int64_t)n_tiles * N < (int64_t)S << kp_log ||
+        (n_tiles & ((1 << tps_log) - 1)))
+      return (int)cudaErrorInvalidValue;
+    auto kern = fused_gmm_kernel<MODE, KS>;
+    // The shared-memory size is set once for each device (a launch costs
+    // only the launch on the host).
+    static uint64_t attr_set = 0;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!(attr_set >> dev & 1)) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      attr_set |= uint64_t{1} << dev;
+    }
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return (int)err;
+    // About four blocks an SM: frame blocks x senone ranges.
+    const int n_units = n_tiles >> tps_log;
+    const int frame_blocks = (T + G::BM - 1) / G::BM;
+    int split = (4 * sms + frame_blocks - 1) / frame_blocks;
+    split = split < n_units ? split : n_units;
+    split = split > 0 ? (split < 65535 ? split : 65535) : 1;
+    kern<<<dim3(frame_blocks, split), G::THREADS, G::SMEM, stream>>>(
+        x, tiles, cst, out, T, S, D, kp_log, n_units, tps_log);
+    return (int)cudaGetLastError();
   }
 }
 
-template <int MODE, typename P>
-int launch(const void* x, const void* lin, const void* quad, const void* cst,
-           void* out, int T, int S, int K, int D, cudaStream_t stream) {
-  const int ds = D | 1;  // odd row stride: conflict-free shared reads
-  const int planes = MODE == HIGH ? 4 : 2;
-  const size_t smem = (size_t)planes * BT * ds * sizeof(float);
-  auto kern = fused_gmm_kernel<MODE, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BT - 1) / BT, (S + WARPS - 1) / WARPS);
-  const dim3 block(LANES, WARPS);
-  kern<<<grid, block, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const P*>(lin),
-      static_cast<const P*>(quad), static_cast<const float*>(cst),
-      static_cast<float*>(out), T, S, K, D, ds);
-  return (int)cudaGetLastError();
+// One instantiation a depth, so that the k-steps (32 bytes of depth each)
+// unroll: Dp = 16..128 (D <= 64).
+template <int MODE, int KS = Cfg<MODE>::E == 4 ? 2 : 1>
+int dispatch(int Dp, const float* x, const uint8_t* tiles, const float* cst,
+             float* out, int T, int S, int D, int kp_log, int n_tiles,
+             int tile_bytes, cudaStream_t stream) {
+  if constexpr (KS > 4 * Cfg<MODE>::E) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (Dp * Cfg<MODE>::E / 32 == KS)
+      return launch<MODE, KS>(x, tiles, cst, out, T, S, D, kp_log, n_tiles,
+                              tile_bytes, stream);
+    return dispatch<MODE, KS + (Cfg<MODE>::E == 4 ? 2 : 1)>(
+        Dp, x, tiles, cst, out, T, S, D, kp_log, n_tiles, tile_bytes, stream);
+  }
 }
 
 }  // namespace
 
-// x [T, D] f32; lin, quad [S, K, D] (f32 for modes 0/1, bf16 for mode 2);
-// cst [S, K] f32; out [T, S] f32.  All contiguous, on one device.
-// Returns the CUDA error code of the launch (0 = success).
-extern "C" int fused_gmm_launch(int mode, const void* x, const void* lin,
-                                const void* quad, const void* cst, void* out,
-                                int T, int S, int K, int D, void* stream) {
+// x [T, D] f32; tiles: n_tiles packed senone tiles of tile_bytes each
+// and cst their n_tiles * N consts (ops/fused_gmm.py pack_params for this
+// mode, N densities a tile, Kp = 2^kp_log densities a senone, depth Dp);
+// out [T, S] f32.  All contiguous,
+// on one device.  Returns the CUDA error code of the launch (0 = success).
+extern "C" int fused_gmm_launch(int mode, const void* x, const void* tiles,
+                                const void* cst, void* out, int T, int S, int D, int Dp,
+                                int kp_log, int n_tile, int n_tiles,
+                                int tile_bytes, void* stream) {
   if (T <= 0 || S <= 0) return 0;
-  if (K <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  if ((S + WARPS - 1) / WARPS > 65535) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || Dp < 2 * D || Dp % 16 || kp_log < 3 || kp_log > 20 ||
+      n_tiles <= 0)
+    return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const uint8_t* tp = static_cast<const uint8_t*>(tiles);
+  const float* cp = static_cast<const float*>(cst);
+  float* op = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case HIGHEST:
-      return launch<HIGHEST, float>(x, lin, quad, cst, out, T, S, K, D, st);
+      if (n_tile != Cfg<HIGHEST>::N) return (int)cudaErrorInvalidValue;
+      return dispatch<HIGHEST>(Dp, xp, tp, cp, op, T, S, D, kp_log, n_tiles,
+                               tile_bytes, st);
     case HIGH:
-      return launch<HIGH, float>(x, lin, quad, cst, out, T, S, K, D, st);
+      if (n_tile != Cfg<HIGH>::N) return (int)cudaErrorInvalidValue;
+      return dispatch<HIGH>(Dp, xp, tp, cp, op, T, S, D, kp_log, n_tiles,
+                            tile_bytes, st);
     case BF16:
-      return launch<BF16, __nv_bfloat16>(x, lin, quad, cst, out, T, S, K, D, st);
+      if (n_tile != Cfg<BF16>::N) return (int)cudaErrorInvalidValue;
+      return dispatch<BF16>(Dp, xp, tp, cp, op, T, S, D, kp_log, n_tiles,
+                            tile_bytes, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -54,10 +54,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._host import (Arg, Config, Dict2Pid, Dictionary, Mdef, NgramModel,
-                     TransitionMatrices, build_word_graph)
+from ..models.dict import Dictionary
+from ..models.dict2pid import Dict2Pid
+from ..models.mdef import Mdef
+from ..models.ngram import NgramModel
 from ..models.ngram_device import DeviceNgram
+from ..models.tmat import TransitionMatrices
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
+from ..utils.config import Arg, Config
+from .lexgraph import build_word_graph
 from .results import Hypothesis, Segment
 
 NGRAM_ARGS = [
@@ -188,7 +193,7 @@ class NgramSearch(nn.Module):
     def __init__(self, lm: NgramModel, d: Dictionary, mdef: Mdef,
                  tmat: TransitionMatrices, scorer: nn.Module,
                  config: Optional[Config] = None, *,
-                 device: torch.device | str, **kwargs):
+                 device: torch.device | str = "cuda", **kwargs):
         super().__init__()
         cfg = (config.copy() if config else Config(NGRAM_ARGS)).register(NGRAM_ARGS)
         cfg.update(**kwargs)

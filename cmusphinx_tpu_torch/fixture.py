@@ -1,7 +1,8 @@
 """Seeded recognition tasks with a known answer, and their model directories.
 
-`build(seed, model, size)` makes, with numpy and the reference package's
-jax-free readers and constructors, everything the N-gram decode path needs:
+`build(seed, model, size)` makes, with numpy and the port's host readers
+and constructors (`models/`, `lm/estimate.py`), everything the N-gram
+decode path needs:
 
 - a phone set of CI phones plus SIL, 3 emitting states each;
 - a text mdef (the `Mdef.write_text` format) whose triphones cover the
@@ -63,10 +64,18 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ._host import (LOG_ZERO, Config, Dict2Pid, Dictionary, GaussianParams,
-                    Mdef, NgramModel, TransitionMatrices, read_sendump,
-                    train_lm, write_s3_header, write_sendump)
 from .frontend.feat import FEAT_ARGS, FeatPipeline
+from .lm.estimate import train_lm
+from .models.dict import Dictionary
+from .models.dict2pid import Dict2Pid
+from .models.gauden import GaussianParams
+from .models.mdef import Mdef
+from .models.ngram import NgramModel
+from .models.sendump import read_sendump, write_sendump
+from .models.tmat import TransitionMatrices
+from .utils.bio import write_s3_header
+from .utils.config import Config
+from .utils.logmath import LOG_ZERO
 
 CMU_PHONES = ("AA AE AH AO AW AY B CH D DH EH ER EY F G HH IH IY JH K L M N "
               "NG OW OY P R S SH T TH UH UW V W Y Z ZH").split()

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._host import Arg, Config
+from ..utils.config import Arg, Config
 
 # Defaults mirror sphinxbase/include/sphinxbase/fe.h:80-101 and the
 # waveform_to_cepstral_command_line_macro arg table (fe.h:105-230).
@@ -235,7 +235,7 @@ class Frontend(nn.Module):
     in float32."""
 
     def __init__(self, config: Optional[Config] = None, *,
-                 device: torch.device | str, **kwargs):
+                 device: torch.device | str = "cuda", **kwargs):
         super().__init__()
         cfg = (config.copy() if config else Config(FE_ARGS)).register(FE_ARGS)
         cfg.update(**kwargs)

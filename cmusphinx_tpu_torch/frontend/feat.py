@@ -32,7 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._host import Arg, Config, S3File
+from ..utils.bio import S3File
+from ..utils.config import Arg, Config
 
 FEAT_ARGS = [
     Arg("feat", str, "1s_c_d_dd", "Feature stream type"),
@@ -77,7 +78,7 @@ class FeatPipeline(nn.Module):
     The LDA matrix, when configured, is a buffer on `device`."""
 
     def __init__(self, config: Optional[Config] = None, *,
-                 device: torch.device | str, **kwargs):
+                 device: torch.device | str = "cuda", **kwargs):
         super().__init__()
         cfg = (config.copy() if config else Config(FEAT_ARGS)).register(FEAT_ARGS)
         cfg.update(**kwargs)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._host import NgramModel
+from .ngram import NgramModel
 
 
 def build_dense3(m: NgramModel) -> np.ndarray:
@@ -90,7 +90,7 @@ class DeviceNgram(nn.Module):
     # its compile-payload cap; kept so both packages build the same tables).
     _HASH_LOAD = 0.6
 
-    def __init__(self, m: NgramModel, *, device: torch.device | str,
+    def __init__(self, m: NgramModel, *, device: torch.device | str = "cuda",
                  dense3_limit: int = 256 << 20):
         super().__init__()
         self.calls: Counter = Counter()
@@ -134,7 +134,7 @@ class DeviceNgram(nn.Module):
             self._build_hash(m, device)
 
     @classmethod
-    def from_dense(cls, tg_dense, *, device: torch.device | str
+    def from_dense(cls, tg_dense, *, device: torch.device | str = "cuda"
                    ) -> "DeviceNgram":
         """Wrap an existing dense [V+1, V+1, V] table (dense backend only)."""
         tg = torch.as_tensor(tg_dense, dtype=torch.float32, device=device)

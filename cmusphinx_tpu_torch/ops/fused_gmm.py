@@ -9,8 +9,13 @@ hand-written kernel in `csrc/fused_gmm.cu` (the port of
 plain version `fused_mixture_scores_ref`.  It never falls back from one to
 the other.  `fused_mixture_scores.launches` counts the kernel's launches.
 
-Parameters stay senone-major — lin/quad `[S, K, D]`, const `[S, K]`; the
-reference's mixture-major block packing was a Mosaic shape-cast workaround.
+The plain version takes the parameters senone-major — lin/quad `[S, K, D]`,
+const `[S, K]`.  The kernel takes them packed by `pack_params` (once, at
+scorer construction): one tensor-core operand B = [lin | -quad] per
+density, in senone tiles laid out as the kernel's shared memory holds them,
+each operand split into the parts its precision mode multiplies (tf32 or
+bf16 hi and lo), K padded to a power of two with pad densities of const
+-1e30, S padded to whole tiles (see the note in the CUDA source).
 
 The kernel is compiled with nvcc for sm_90a at first use into `build/` at
 the repository root (git-ignored), named by a hash of its source, and
@@ -27,11 +32,16 @@ import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass
 
 import torch
 
 PRECISIONS = ("highest", "high", "bf16")
 _MODE = {"highest": 0, "high": 1, "bf16": 2}
+# Densities per senone tile of the kernel, in each mode (Cfg<MODE>::N).
+TILE_N = {"highest": 64, "high": 128, "bf16": 128}
+# Const of the pad densities: exp() of it is 0 (pallas_gmm._PAD_CONST).
+PAD_CONST = -1e30
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gmm.cu"
@@ -88,7 +98,7 @@ def build() -> float:
     if _lib is None:
         lib = ctypes.CDLL(str(so))
         lib.fused_gmm_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
             + [ctypes.c_void_p])
         lib.fused_gmm_launch.restype = ctypes.c_int
         _lib = lib
@@ -96,10 +106,83 @@ def build() -> float:
 
 
 # ----------------------------------------------------------------------
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """f32 `a` rounded to tf32 (10 mantissa bits, round to nearest even),
+    as f32: the kernel's `tf32_rn`."""
+    b = a.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = (b + 0xFFF + ((b >> 13) & 1)) & 0xFFFFE000
+    return torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32).view(
+        torch.float32)
+
+
+def split_parts(a: torch.Tensor, precision: str):
+    """The tensor-core operands of f32 `a` in one precision mode, in the
+    operand type: tf32 hi and lo (f32 containers) for "highest", bf16 hi
+    and lo for "high", bf16 for "bf16".  hi + lo reconstructs `a` within
+    2^-22 (tf32) or 2^-16 (bf16) of |a|."""
+    a = a.float()
+    if precision == "highest":
+        hi = tf32_round(a)
+        return [hi, tf32_round(a - hi)]
+    hi = a.to(torch.bfloat16)
+    if precision == "high":
+        return [hi, (a - hi.float()).to(torch.bfloat16)]
+    return [hi]
+
+
+@dataclass(frozen=True)
+class Packed:
+    """K1's parameters for one precision mode: `tiles` [n_tiles,
+    tile_bytes] uint8, each tile N densities (`n_tile`) of B = [lin |
+    -quad] over depth `dp`, every part in the wgmma core-matrix layout;
+    `const` [n_tiles * N] f32, their consts; `kp` densities a senone (a
+    power of two >= 8)."""
+    tiles: torch.Tensor
+    const: torch.Tensor
+    precision: str
+    S: int
+    K: int
+    D: int
+    kp: int
+    dp: int
+    n_tile: int
+
+
+def _core_layout(b: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows [R, Dp] of one operand part -> bytes [R/n, n*Dp*itemsize] in
+    the no-swizzle K-major layout: per tile [n/8][Dp/epc] core matrices of
+    8 rows x 16 bytes (epc = 16 / itemsize elements a core row)."""
+    R, dp = b.shape
+    epc = 16 // b.element_size()
+    t = b.reshape(R // n, n // 8, 8, dp // epc, epc).permute(0, 1, 3, 2, 4)
+    return t.contiguous().view(torch.uint8).reshape(R // n, -1)
+
+
+def pack_params(lin: torch.Tensor, quad: torch.Tensor, const: torch.Tensor,
+                precision: str = "highest") -> Packed:
+    """lin/quad [S, K, D] (f32, or bf16 in bf16 mode), const [S, K] f32 ->
+    K1's packed senone tiles, on the parameters' device."""
+    _check_params(lin, quad, const, precision)
+    S, K, D = lin.shape
+    kp = max(8, 1 << (K - 1).bit_length())
+    dp = -(-2 * D // 16) * 16
+    n = TILE_N[precision]
+    rows = -(-S * kp // n) * n
+    b = lin.new_zeros((rows, dp), dtype=torch.float32)
+    bv = b[: S * kp].view(S, kp, dp)
+    bv[:, :K, :D] = lin.float()
+    bv[:, :K, D: 2 * D] = -quad.float()
+    c = const.new_full((rows,), PAD_CONST, dtype=torch.float32)
+    c[: S * kp].view(S, kp)[:, :K] = const
+    parts = [_core_layout(part, n) for part in split_parts(b, precision)]
+    return Packed(torch.cat(parts, 1).contiguous(), c, precision, S, K, D,
+                  kp, dp, n)
+
+
+# ----------------------------------------------------------------------
 def _bf16_parts(a: torch.Tensor):
     """Split f32 `a` into bf16 hi + lo (round to nearest even), as f32."""
-    hi = a.to(torch.bfloat16).float()
-    return hi, (a - hi).to(torch.bfloat16).float()
+    return [p.float() for p in split_parts(a, "high")]
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -157,24 +240,31 @@ def fused_mixture_scores_ref(x: torch.Tensor, lin: torch.Tensor,
     return out
 
 
-def _check(x, lin, quad, const, precision):
+def _check_params(lin, quad, const, precision):
     if precision not in _MODE:
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
-    if x.dim() != 2 or lin.dim() != 3 or quad.shape != lin.shape:
-        raise ValueError("expected x [T, D], lin/quad [S, K, D]; got "
-                         f"{tuple(x.shape)}, {tuple(lin.shape)}, "
-                         f"{tuple(quad.shape)}")
-    S, K, D = lin.shape
-    if x.shape[1] != D or tuple(const.shape) != (S, K):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, lin "
-                         f"{tuple(lin.shape)}, const {tuple(const.shape)}")
+    if lin.dim() != 3 or quad.shape != lin.shape:
+        raise ValueError("expected lin/quad [S, K, D]; got "
+                         f"{tuple(lin.shape)}, {tuple(quad.shape)}")
+    if tuple(const.shape) != tuple(lin.shape[:2]):
+        raise ValueError(f"shape mismatch: lin {tuple(lin.shape)}, const "
+                         f"{tuple(const.shape)}")
     ptype = torch.bfloat16 if precision == "bf16" else torch.float32
-    if x.dtype != torch.float32 or const.dtype != torch.float32:
-        raise TypeError("x and const must be float32")
+    if const.dtype != torch.float32:
+        raise TypeError("const must be float32")
     if lin.dtype != ptype or quad.dtype != ptype:
         raise TypeError(f"precision {precision!r} takes {ptype} lin/quad, "
                         f"got {lin.dtype}/{quad.dtype}")
+
+
+def _check(x, lin, quad, const, precision):
+    _check_params(lin, quad, const, precision)
+    if x.dim() != 2 or x.shape[1] != lin.shape[2]:
+        raise ValueError(f"expected x [T, {lin.shape[2]}], got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError("x must be float32")
     devs = {t.device for t in (x, lin, quad, const)}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
@@ -182,32 +272,42 @@ def _check(x, lin, quad, const, precision):
 
 def fused_mixture_scores(x: torch.Tensor, lin: torch.Tensor,
                          quad: torch.Tensor, const: torch.Tensor,
-                         precision: str = "highest") -> torch.Tensor:
+                         precision: str = "highest",
+                         packed: Packed | None = None) -> torch.Tensor:
     """x [T, D] f32; lin/quad [S, K, D] (f32, or bf16 in bf16 mode);
     const [S, K] f32 -> [T, S] f32 log mixture scores.
 
-    CUDA tensors launch the K1 kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the K1 kernel on `packed` (`pack_params` of these
+    parameters in this mode, packed here when not given); CPU tensors take
+    the plain version."""
     _check(x, lin, quad, const, precision)
     if x.device.type == "cpu":
         return fused_mixture_scores_ref(x, lin, quad, const, precision)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
-    for name, t in (("x", x), ("lin", lin), ("quad", quad), ("const", const)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
     S, K, D = lin.shape
+    if packed is None:
+        packed = pack_params(lin, quad, const, precision)
+    if ((packed.precision, packed.S, packed.K, packed.D)
+            != (precision, S, K, D) or packed.tiles.device != x.device):
+        raise ValueError("packed parameters of another model, mode or device")
     T = x.shape[0]
     out = torch.empty((T, S), dtype=torch.float32, device=x.device)
     if T == 0:
         return out
-    if max(T * max(D, S), S * K * D) >= 2 ** 31:
+    if max(T * max(D, S), packed.tiles.numel()) >= 2 ** 31:
         raise ValueError("K1 takes tensors of fewer than 2^31 elements")
-    build()
+    if _lib is None:
+        build()
+    n_tiles, tile_bytes = packed.tiles.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib.fused_gmm_launch(
-            _MODE[precision], x.data_ptr(), lin.data_ptr(), quad.data_ptr(),
-            const.data_ptr(), out.data_ptr(), T, S, K, D, stream)
+            _MODE[precision], x.data_ptr(), packed.tiles.data_ptr(),
+            packed.const.data_ptr(), out.data_ptr(), T, S, D, packed.dp, packed.kp.bit_length() - 1,
+            packed.n_tile, n_tiles, tile_bytes, stream)
     if err != 0:
         raise RuntimeError(f"K1 fused_gmm launch failed: CUDA error {err}")
     fused_mixture_scores.launches += 1

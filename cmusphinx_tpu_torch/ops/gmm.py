@@ -8,14 +8,16 @@ The log Gaussian density `lrd - sum_d prec (x - mean)^2` expands to
 
 Precision matters here: the expanded quadratic form cancels terms of the
 size of prec·mean², which reach ~1e6 nats on trained models with floored
-variances, so every f32 product runs in IEEE f32 (TF32 is switched off in
-the package's `__init__`).  `-gmmprec` trades precision for speed:
-`highest` (f32), `high` (bf16 hi+lo split, 3 products) and `bf16` (bf16
-parameters, one product, f32 sums — rejected for trained models, see
-PERF.md).
+variances, so every plain f32 product runs in IEEE f32 (TF32 is switched
+off in the package's `__init__`), and K1 computes `highest` as 3xTF32
+products, held to the same f32 bound.  `-gmmprec` trades precision for
+speed: `highest` (f32), `high` (bf16 hi+lo split, 3 products) and `bf16`
+(bf16 parameters, one product, f32 sums — rejected for trained models,
+see PERF.md).
 
-Every scorer is an `nn.Module` whose parameters are buffers on an explicit
-`device`; `score` takes features `[..., T, D]` and returns `[..., T, S]`.
+Every scorer is an `nn.Module` whose parameters are buffers on `device`
+(the card unless the caller asks for "cpu"); `score` takes features
+`[..., T, D]` and returns `[..., T, S]`.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._host import GaussianParams
+from ..models.gauden import GaussianParams
 from .fused_gmm import (PRECISIONS, _REF_CHUNK_BYTES, fused_mixture_scores,
-                        fused_mixture_scores_ref)
+                        fused_mixture_scores_ref, pack_params)
 from .fused_gmm import mask_topn as _mask_topn
 
 GEMM_PRECISIONS = PRECISIONS
@@ -102,7 +104,7 @@ class SemiContinuousScorer(_StreamParams):
 
     def __init__(self, gauden: GaussianParams, ln_mixw: np.ndarray,
                  stream_slices: Sequence[np.ndarray], topn: int = 0, *,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         if gauden.n_mgau != 1:
             raise ValueError("semi-continuous scorer needs a single codebook set")
@@ -111,7 +113,8 @@ class SemiContinuousScorer(_StreamParams):
 
     @classmethod
     def from_params(cls, means, prec, lrd, w, stream_slices, topn: int = 0, *,
-                    device: torch.device | str) -> "SemiContinuousScorer":
+                    device: torch.device | str = "cuda"
+                    ) -> "SemiContinuousScorer":
         """Build from per-stream means/prec/lrd and linear weights w
         [n_feat, K, S] (see `convert.semicont_from_jax`)."""
         self = cls.__new__(cls)
@@ -144,8 +147,10 @@ class ContinuousScorer(nn.Module):
 
     Buffers: `lin`, `quad` [S, K, D] (bf16 in bf16 mode, else f32) and
     `const` [S, K] f32, so score[t,s] = logsumexp_k(const[s,k] +
-    x_t.lin[s,k] - x_t^2.quad[s,k]).  With `topn == 0`, `score` sends CUDA
-    tensors to the K1 kernel and CPU tensors to its plain version.  With
+    x_t.lin[s,k] - x_t^2.quad[s,k]); on the card also `packed`, the same
+    parameters packed once for K1 (`fused_gmm.pack_params`).  With
+    `topn == 0`, `score` sends CUDA tensors to the K1 kernel and CPU
+    tensors to its plain version.  With
     `topn > 0` (keep each senone's top-N densities, reference eval_topn
     semantics) it takes the plain path on any device, as the reference
     does.  With `kernel=False` it calls the plain version on any device (the
@@ -153,7 +158,7 @@ class ContinuousScorer(nn.Module):
 
     def __init__(self, gauden: GaussianParams, ln_mixw: np.ndarray, *,
                  topn: int = 0, precision: str = "highest",
-                 device: torch.device | str, kernel: bool = True):
+                 device: torch.device | str = "cuda", kernel: bool = True):
         super().__init__()
         if gauden.n_feat != 1:
             raise ValueError("continuous scorer expects a single feature stream")
@@ -169,7 +174,7 @@ class ContinuousScorer(nn.Module):
     @classmethod
     def from_params(cls, lin: np.ndarray, quad: np.ndarray, const: np.ndarray,
                     *, topn: int = 0, precision: str = "highest",
-                    device: torch.device | str,
+                    device: torch.device | str = "cuda",
                     kernel: bool = True) -> "ContinuousScorer":
         """Build from senone-major lin/quad [S, K, D] and const [S, K]
         (see `convert.continuous_from_jax`)."""
@@ -194,6 +199,9 @@ class ContinuousScorer(nn.Module):
         self.register_buffer("quad", param(quad))
         self.register_buffer("const", torch.as_tensor(_f32(const)).to(device))
         self.n_sen, self.n_density = self.lin.shape[0], self.lin.shape[1]
+        # K1's packed senone tiles, made once (on the card only).
+        self.packed = (pack_params(self.lin, self.quad, self.const, precision)
+                       if self.lin.device.type == "cuda" else None)
 
     def score(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [..., T, D] -> [..., T, S]."""
@@ -201,10 +209,12 @@ class ContinuousScorer(nn.Module):
         if self.topn:
             out = fused_mixture_scores_ref(x, self.lin, self.quad, self.const,
                                            self.precision, topn=self.topn)
+        elif self.kernel:
+            out = fused_mixture_scores(x, self.lin, self.quad, self.const,
+                                       self.precision, packed=self.packed)
         else:
-            fn = (fused_mixture_scores if self.kernel
-                  else fused_mixture_scores_ref)
-            out = fn(x, self.lin, self.quad, self.const, self.precision)
+            out = fused_mixture_scores_ref(x, self.lin, self.quad, self.const,
+                                           self.precision)
         return out.reshape(*feats.shape[:-1], self.n_sen)
 
     forward = score
@@ -219,7 +229,7 @@ class PTMScorer(nn.Module):
 
     def __init__(self, gauden: GaussianParams, ln_mixw: np.ndarray,
                  sen2cb: np.ndarray, topn: int = 0, *,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         if gauden.n_feat != 1:
             raise ValueError("PTM scorer expects a single feature stream")
@@ -232,7 +242,7 @@ class PTMScorer(nn.Module):
 
     @classmethod
     def from_params(cls, lin, quad, const, lnw, sen2cb, topn: int = 0, *,
-                    device: torch.device | str) -> "PTMScorer":
+                    device: torch.device | str = "cuda") -> "PTMScorer":
         """Build from codebook-major lin/quad [C, K, D], const [C, K], lnw
         [S, K] and sen2cb [S] (see `convert.ptm_from_jax`)."""
         self = cls.__new__(cls)
@@ -311,7 +321,8 @@ class PsParityScorer(_StreamParams):
     def __init__(self, gauden: GaussianParams, raw_mixw: np.ndarray,
                  stream_slices: Sequence[np.ndarray], topn: int = 4,
                  logbase: float = 1.0001, shift: int = 10,
-                 wrap_uint8: bool = False, *, device: torch.device | str):
+                 wrap_uint8: bool = False, *,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         if gauden.n_mgau != 1:
             raise ValueError("parity scorer needs a single codebook set")
@@ -336,7 +347,7 @@ class PsParityScorer(_StreamParams):
     @classmethod
     def from_params(cls, means, prec, lrd, mixw, table8, stream_slices, *,
                     topn: int, shift: int, scale: float, wrap_uint8: bool,
-                    device: torch.device | str) -> "PsParityScorer":
+                    device: torch.device | str = "cuda") -> "PsParityScorer":
         """Build from the logmath-domain per-stream means/prec/lrd, the raw
         mixture-weight bytes [n_feat, K, S] and the logadd table (see
         `convert.psparity_from_jax`)."""
@@ -427,7 +438,8 @@ class InterpolatedScorer(nn.Module):
     logs taken in numpy, as the reference does."""
 
     def __init__(self, scorer: nn.Module, cd2cisen: np.ndarray,
-                 n_ci_sen: int, lam, *, device: torch.device | str):
+                 n_ci_sen: int, lam, *,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.inner = scorer
         self.n_sen = scorer.n_sen

@@ -10,15 +10,19 @@ frontend differ by float32 summation order only (see the tolerances in
 test_torch_gmm, test_torch_semicont and test_torch_fe).
 """
 
+import dataclasses
+import inspect
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from cmusphinx_tpu.api import DECODER_ARGS as JAX_DECODER_ARGS
 from cmusphinx_tpu.api import Decoder as JaxDecoder
 from cmusphinx_tpu_torch import fixture
-from cmusphinx_tpu_torch._host import MllrTransform, write_mfc
+from cmusphinx_tpu_torch.models.mllr import MllrTransform
+from cmusphinx_tpu_torch.utils.bio import write_mfc
 from cmusphinx_tpu_torch.api import DECODER_ARGS, Decoder
 from cmusphinx_tpu_torch.decode.results import Hypothesis
 
@@ -32,6 +36,11 @@ CASES = {
     "ptm": ("ptm", None, {}, "PTMScorer"),
     "cont_lambda": ("cont", None, {"lambda": True}, "InterpolatedScorer"),
 }
+
+
+def _table(args):
+    """An argument table's values (the port's `Arg` is its own class)."""
+    return [dataclasses.astuple(a) for a in args]
 
 
 def _same(h, j):
@@ -140,9 +149,12 @@ def test_utterance_state_and_unported_parts(model_dirs):
             Decoder(device="cpu", **{key: "x"}, **kw)
     with pytest.raises(ValueError):
         Decoder(device="cpu", lm=kw["lm"], dict=kw["dict"])
-    with pytest.raises(TypeError):
-        Decoder(**kw)                                      # device is required
-    assert DECODER_ARGS == JAX_DECODER_ARGS
+    # Without `device` it runs on the card, and never falls back to the CPU.
+    assert inspect.signature(Decoder).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            Decoder(**kw)
+    assert _table(DECODER_ARGS) == _table(JAX_DECODER_ARGS)
 
 
 def test_cep_chunks_lmctl_mllr_and_add_word(model_dirs, tmp_path):

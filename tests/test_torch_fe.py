@@ -11,6 +11,8 @@ tonal frames included), carried through the linear maps as bounds:
 |idct| as well.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,11 @@ CONFIGS = {
     "8k_doublebw": {"samprate": 8000, "nfft": 256, "upperf": 3500,
                     "doublebw": True},
 }
+
+
+def _table(args):
+    """An argument table's values (the port's `Arg` is its own class)."""
+    return [dataclasses.astuple(a) for a in args]
 
 
 def signals(seed: int = 0, sr: int = 16000):
@@ -106,7 +113,7 @@ def test_frontend_batch_and_dither():
 
 
 def test_frontend_rejects_bad_config():
-    assert FE_ARGS == JAX_FE_ARGS
+    assert _table(FE_ARGS) == _table(JAX_FE_ARGS)
     with pytest.raises(ValueError):
         Frontend(Config(FE_ARGS), device="cpu", nfft=256)   # frame > nfft
     with pytest.raises(ValueError):

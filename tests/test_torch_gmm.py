@@ -304,3 +304,130 @@ def test_interpolated_matches_reference(lam):
     M = _magnitude(x, lin, quad, const)
     bound = D * 2.0 ** -22 * np.maximum(M, M[:, cd2ci]) + 1e-6 * np.abs(want)
     _within(got, want, bound)
+
+
+# ---- K1's packed operands (fused_gmm.pack_params) ----------------------
+# The kernel multiplies A = [x | x^2], split per mode, by the packed
+# B = [lin | -quad] on the tensor cores and adds const.  Its host half is
+# held here: the packing, the splits, and their arithmetic in float64.
+# The split products lose at most (M as above): "highest" (tf32 hi.lo +
+# lo.hi + hi.hi) 3 * 2^-22 * M, "high" (the same in bf16) 3 * 2^-18 * M,
+# "bf16" (operands rounded to bf16) 2^-8 * M; each is inside its mode's
+# bound against float64.  Against the plain version the packed evaluation
+# differs by the f32 sums of the plain side (D * 2^-22 * M) and, in
+# "highest", also by the split (the sum of the two sides' float64 bounds).
+SPLIT_BOUND = {"highest": 3 * 2.0 ** -22, "high": 3 * 2.0 ** -18,
+               "bf16": 2.0 ** -8}
+
+
+def _unpack(p):
+    """Packed tiles -> the B parts [R, Dp] and const [R], in float64."""
+    from cmusphinx_tpu_torch.ops.fused_gmm import TILE_N
+    n, dp, nt = p.n_tile, p.dp, p.tiles.shape[0]
+    assert n == TILE_N[p.precision]
+    dt = torch.float32 if p.precision == "highest" else torch.bfloat16
+    es = dt.itemsize
+    epc, pb = 16 // es, n * dp * es
+    nparts = 1 if p.precision == "bf16" else 2
+    parts = []
+    for i in range(nparts):
+        raw = p.tiles[:, i * pb: (i + 1) * pb].contiguous().view(dt)
+        parts.append(raw.reshape(nt, n // 8, dp // epc, 8, epc)
+                     .permute(0, 1, 3, 2, 4).reshape(nt * n, dp).double())
+    assert p.tiles.shape == (nt, nparts * pb)
+    assert p.const.shape == (nt * n,) and p.const.dtype == torch.float32
+    return parts, p.const.double()
+
+
+def _packed_densities(x, p):
+    """The kernel's arithmetic from the packed operands, in float64:
+    densities [T, S_pad, Kp]."""
+    from cmusphinx_tpu_torch.ops.fused_gmm import split_parts
+    x = torch.as_tensor(x)
+    a = torch.zeros(x.shape[0], p.dp)
+    a[:, :p.D], a[:, p.D: 2 * p.D] = x, x * x
+    A = [q.double() for q in split_parts(a, p.precision)]
+    B, c = _unpack(p)
+    if len(B) == 2:
+        d = A[0] @ B[1].T + A[1] @ B[0].T + A[0] @ B[0].T
+    else:
+        d = A[0] @ B[0].T
+    return (d + c).view(x.shape[0], -1, p.kp)
+
+
+def _pack(g, lnw, mode):
+    from cmusphinx_tpu_torch.ops.fused_gmm import pack_params
+    sc = ContinuousScorer(g, lnw, precision=mode, device="cpu")
+    return sc, pack_params(sc.lin, sc.quad, sc.const, mode)
+
+
+@pytest.mark.parametrize("S,K,D", [(37, 4, 13), (21, 1, 39), (11, 32, 39),
+                                   (9, 12, 51), (3, 256, 13)])
+@pytest.mark.parametrize("mode", MODES)
+def test_pack_params_pads_and_matches_plain_version(mode, S, K, D):
+    from cmusphinx_tpu_torch.ops.fused_gmm import PAD_CONST
+    rng = np.random.RandomState(S + K + D)
+    g, lnw, x = _gauden(rng, S, K, D)
+    sc, p = _pack(g, lnw, mode)
+    kp = max(8, 1 << (K - 1).bit_length())
+    assert (p.kp, p.dp, p.S, p.K, p.D) == (kp, -(-2 * D // 16) * 16, S, K, D)
+    assert p.tiles.dtype == torch.uint8 and p.tiles.is_contiguous()
+    rows = p.tiles.shape[0] * p.n_tile
+    assert S * kp <= rows < S * kp + p.n_tile
+    B, c = _unpack(p)
+    # Pads: densities k >= K and rows past S*Kp have zero operands and the
+    # pad const; depth columns past 2D are zero.
+    real = torch.zeros(rows, dtype=torch.bool)
+    real[: S * kp] = (torch.arange(kp) < K).repeat(S)
+    for b in B:
+        assert not b[~real].any() and not b[:, 2 * D:].any()
+    assert bool((c[~real] == float(np.float32(PAD_CONST))).all())
+    assert torch.equal(c[real].float(), sc.const.reshape(-1))
+    hi = B[0][real]
+    want = torch.cat([sc.lin.double(), -sc.quad.double()], -1).reshape(-1, 2 * D)
+    lim = 2.0 ** -11 if mode == "highest" else 2.0 ** -8  # hi: half a unit
+    assert bool(((hi[:, :2 * D] - want).abs() <= lim * want.abs()).all())
+    # The pads change no score.
+    dens = _packed_densities(x, p)
+    full = torch.logsumexp(dens, -1)[:, :S]
+    assert torch.equal(full, torch.logsumexp(dens[:, :S, :K], -1))
+    # The packed arithmetic against the plain version.
+    ref = fused_mixture_scores_ref(torch.as_tensor(x), sc.lin, sc.quad,
+                                   sc.const, mode).numpy()
+    M = _magnitude(x, sc.lin.float().numpy(), sc.quad.float().numpy(),
+                   sc.const.numpy())
+    same = D * 2.0 ** -22 * (2 if mode == "highest" else 1)
+    _within(ref, full.numpy(), same * M)
+
+
+@pytest.mark.parametrize("mode", ["highest", "high"])
+def test_split_parts_reconstruct(mode):
+    from cmusphinx_tpu_torch.ops.fused_gmm import split_parts, tf32_round
+    rng = np.random.RandomState(9)
+    a = torch.as_tensor((rng.randn(20000) * 10.0 ** rng.uniform(-6, 6, 20000)
+                         ).astype(np.float32))
+    hi, lo = split_parts(a, mode)
+    err = (hi.double() + lo.double() - a.double()).abs()
+    bound = 2.0 ** -22 if mode == "highest" else 2.0 ** -16
+    assert bool((err <= bound * a.double().abs()).all())
+    if mode == "highest":
+        for part in (hi, lo):          # tf32: the low 13 mantissa bits clear
+            assert not (part.view(torch.int32) & 0x1FFF).any()
+            assert torch.equal(tf32_round(part), part)
+        # Round to nearest: hi is within half a tf32 unit of a.
+        assert bool(((hi - a).abs() <= 2.0 ** -11 * a.abs()).all())
+    else:
+        assert hi.dtype == lo.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_split_arithmetic_within_mode_bound_floored(mode):
+    rng = np.random.RandomState(11)
+    S, K, D = 40, 32, 39
+    g, lnw, x = _gauden(rng, S, K, D, floored=True)
+    _, p = _pack(g, lnw, mode)
+    lin, quad, const = _params(g, lnw)
+    got = torch.logsumexp(_packed_densities(x, p), -1)[:, :S].numpy()
+    M = _magnitude(x, lin, quad, const)
+    assert SPLIT_BOUND[mode] <= (MODE_BOUND[mode] or D * 2.0 ** -22)
+    _within(got, _exact(x, lin, quad, const), SPLIT_BOUND[mode] * M)

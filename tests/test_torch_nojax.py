@@ -1,5 +1,5 @@
-"""The port runs on a machine without JAX: it imports none, directly or
-through a module of the reference package."""
+"""The port runs on a machine without JAX: it imports none, and nothing of
+the reference package either."""
 
 import os
 import pathlib
@@ -12,6 +12,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 _DECODE_WITHOUT_JAX = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["cmusphinx_tpu"] = None  # and any of the reference package
 import numpy as np
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.decode import NgramSearch
@@ -32,8 +33,8 @@ for lex in ("flat", "tree"):
                      lexmode=lex)
     ok.append([h.words for h in ms.decode_batch_cep(m.ceps, mfp)]
               == m.transcripts)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m.split(".")[0] in ("jax", "cmusphinx_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
 print("WORDS", ok)
 """
 
@@ -51,9 +52,10 @@ def test_decodes_with_jax_blocked():
 _DECODER_WITHOUT_JAX = r"""
 import sys, tempfile
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["cmusphinx_tpu"] = None  # and any of the reference package
 import numpy as np
 from cmusphinx_tpu_torch import fixture
-from cmusphinx_tpu_torch._host import write_mfc
+from cmusphinx_tpu_torch.utils.bio import write_mfc
 from cmusphinx_tpu_torch.api import Decoder
 ok = []
 for model in ("cont", "semi"):
@@ -65,8 +67,8 @@ for model in ("cont", "semi"):
         np.zeros(4000, np.int16).tofile(tmp + "/s.raw")
         d.decode_raw(tmp + "/s.raw")
         ok.append(type(d.scorer).__name__)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m.split(".")[0] in ("jax", "cmusphinx_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
 print("DECODER", ok)
 """
 

@@ -18,7 +18,7 @@ from cmusphinx_tpu.decode.ngram_search import NgramSearch as JaxSearch
 from cmusphinx_tpu.frontend.feat import FeatPipeline as JaxFeat
 from cmusphinx_tpu.ops.gmm import ContinuousScorer as JaxScorer
 from cmusphinx_tpu_torch import fixture
-from cmusphinx_tpu_torch._host import write_mfc
+from cmusphinx_tpu_torch.utils.bio import write_mfc
 from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline
