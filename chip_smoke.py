@@ -8,14 +8,16 @@ Run from the repository root:
 It needs one CUDA device, nvcc (CUDA_HOME or /usr/local/cuda) and no JAX.
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. device: the card, its power limit, torch / CUDA / nvcc versions.
+1. device: the card, its power limit, its SMs and highest SM clock, torch
+   / CUDA / nvcc versions.
 2. build: compile kernel K1 (csrc/fused_gmm.cu) for sm_90a into build/.
 3. K1 against its plain PyTorch version and against float64 at S=5150,
    K=32, D=39 in each -gmmprec mode, with magnitude-scaled bounds (see
    `SAME_MODE`, `MODE_BOUND`), on a unit-scale model at T=2000 and at the
    main path's T=9,600 and on a floored-variance model at T=2000; at both
    unit shapes the times (CUDA events) of K1, of its plain version and of
-   the cuBLAS route (`library_route`), and K1's bound (`k1_bound`).
+   the cuBLAS route (`library_route`), and K1's bound (`k1_bound`).  The
+   same at D=64, K1's widest depth (`fused_gmm.MAX_D`), T=2000.
 4. the slice: the seeded hub4-class fixture (cmusphinx_tpu_torch.fixture,
    16 utterances) through NgramSearch.decode_batch_cep with K1, its launch
    count, hypotheses against the plain scorer's on the card, WER and xRT.
@@ -84,23 +86,29 @@ S, K, D, T_K1 = 5150, 32, 39, 2000
 # The main path's batch: 16 utterances padded to 600 frames.
 T_MAIN = 16 * 600
 MODES = ("highest", "high", "bf16")
+# K1's widest depth, timed beside D=39: its depth 2D fills the 128 the
+# kernel instantiates, and "highest" and "high" have one ring stage there.
+D_WIDE = 64
 # Error bounds, as multiples of M[t,s] = max_k(|const| + sum|x lin| +
-# sum x^2 quad).  Each mode against a float64 evaluation: MODE_BOUND.
-# Kernel against plain: in "high" and "bf16" the same products, the f32
-# sums in another order (D * 2^-22); in "highest" the kernel's 3xTF32
-# products against the plain version's IEEE f32 ones, within the sum of
-# the two sides' float64 bounds (2 * D * 2^-22).
-MODE_BOUND = {"highest": D * 2.0 ** -22, "high": 2.0 ** -14,
-              "bf16": 2.0 ** -6}
-SAME_MODE = {"highest": 2 * D * 2.0 ** -22, "high": D * 2.0 ** -22,
-             "bf16": D * 2.0 ** -22}
+# sum x^2 quad), for features of width d.  Each mode against a float64
+# evaluation: MODE_BOUND.  Kernel against plain: in "high" and "bf16" the
+# same products, the f32 sums in another order (d * 2^-22); in "highest"
+# the kernel's 3xTF32 products against the plain version's IEEE f32 ones,
+# within the sum of the two sides' float64 bounds (2 * d * 2^-22).
+MODE_BOUND = {"highest": lambda d: d * 2.0 ** -22,
+              "high": lambda d: 2.0 ** -14, "bf16": lambda d: 2.0 ** -6}
+SAME_MODE = {"highest": lambda d: 2 * d * 2.0 ** -22,
+             "high": lambda d: d * 2.0 ** -22,
+             "bf16": lambda d: d * 2.0 ** -22}
 # The card's peaks for K1's bound (H100 SXM at 700 W, NVIDIA's data
-# sheet): tensor cores 495 TFLOP/s tf32, 989 bf16; 3.35 TB/s of memory;
-# exps on the special-function units, 16 a clock on each of 132 SMs at
-# 1.83 GHz (~3.9e12/s).
+# sheet): tensor cores 495 TFLOP/s tf32, 989 bf16; 3.35 TB/s of memory.
 PEAK_FLOPS = {"tf32": 495e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
-PEAK_EXPS = 16 * 132 * 1.83e9
+# Exps a clock on each SM's special-function units (sm_90), at the card's
+# highest SM clock as nvidia-smi reports it (phase 1).  That K1's exps run
+# on these units alone is an assumption of its design, not a hard limit:
+# some of them could run as FMA polynomials.
+SFU_EXPS_PER_CLOCK = 16
 DECODE_PASSES = 5
 T_SEMI, TOPN = 2000, 4
 # Share of (t, s) whose PsParityScorer score may differ between the card
@@ -117,10 +125,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit", fmt: str = "csv,noheader"
+               ) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -131,8 +140,12 @@ def phase_device() -> dict:
                          "fallback for this run")
     nvcc = subprocess.run([fused_gmm.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
+            "sms": sms, "sm_clock_max_mhz": clock,
+            "exps_per_s": SFU_EXPS_PER_CLOCK * sms * clock * 1e6,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "nvcc": nvcc[-1], "python": sys.version.split()[0]}
     emit(info)
@@ -149,7 +162,7 @@ def phase_build() -> None:
 
 
 # ----------------------------------------------------------------------
-def gmm_case(rng, floored: bool, T: int = T_K1):
+def gmm_case(rng, floored: bool, T: int = T_K1, D: int = D):
     """Senone-major f32 lin/quad [S, K, D], const [S, K] and frames x [T, D]
     near the model.  `floored`: realistic cepstral means, variances spread
     over decades and floored at 1e-4 (prec up to 5e3), as trained models
@@ -177,6 +190,7 @@ def gmm_case(rng, floored: bool, T: int = T_K1):
 
 def magnitude_and_exact(x, lin, quad, const, rows: int = 250):
     """M[t,s] and the float64 scores, on the device, in frame chunks."""
+    D = x.shape[1]
     l2 = lin.double().reshape(S * K, D)
     q2 = quad.double().reshape(S * K, D)
     c1 = const.double().reshape(1, S * K)
@@ -203,17 +217,17 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_bound(T: int, mode: str) -> tuple:
+def k1_bound(T: int, mode: str, exps_per_s: float, D: int = D) -> tuple:
     """(least ms, what bounds it) for K1 at [T, S, K, D] in one mode: the
     larger of the bytes it must move (x, lin, quad and const read once, the
     scores written once) over the memory rate, its tensor-core products
     (three passes of 2*T*S*K*2D flops in "highest" and "high", one in
-    "bf16") over their peak, and its T*S*K exps over the exp rate."""
+    "bf16") over their peak, and its T*S*K exps over `exps_per_s`."""
     pbytes = 2 if mode == "bf16" else 4
     nbytes = 4 * T * D + 2 * S * K * D * pbytes + 4 * S * K + 4 * T * S
     flops = (1 if mode == "bf16" else 3) * 2 * T * S * K * 2 * D
     ops_s = max(flops / PEAK_FLOPS["tf32" if mode == "highest" else "bf16"],
-                T * S * K / PEAK_EXPS)
+                T * S * K / exps_per_s)
     if nbytes / PEAK_BYTES > ops_s:
         return 1e3 * nbytes / PEAK_BYTES, "bytes"
     return 1e3 * ops_s, "operations"
@@ -223,6 +237,7 @@ def library_route(lin, quad, const):
     """The cuBLAS yardstick, which the port never calls: one IEEE-f32
     matmul of [x | x^2] by [lin | -quad]^T (with const added), then
     torch.logsumexp over K."""
+    D = lin.shape[2]
     b = torch.cat([lin.float(), -quad.float()], -1).reshape(S * K, 2 * D)
     c = const.reshape(1, S * K)
 
@@ -232,11 +247,12 @@ def library_route(lin, quad, const):
     return run
 
 
-def check_k1(dev, floored: bool, modes, T: int = T_K1,
-             timed: bool = True) -> dict:
-    rng = np.random.RandomState(SEED + 1 + floored + (T != T_K1) * 10)
+def check_k1(dev, floored: bool, modes, exps_per_s: float, T: int = T_K1,
+             timed: bool = True, D: int = D) -> dict:
+    rng = np.random.RandomState(SEED + 1 + floored + (T != T_K1) * 10
+                                + (D != 39) * 20)
     lin, quad, const, x = (torch.as_tensor(a, device=dev)
-                           for a in gmm_case(rng, floored, T))
+                           for a in gmm_case(rng, floored, T, D))
     M, exact = magnitude_and_exact(x, lin, quad, const)
     lib = library_route(lin, quad, const) if timed else None
     results = {}
@@ -244,7 +260,7 @@ def check_k1(dev, floored: bool, modes, T: int = T_K1,
         sc = ContinuousScorer.from_params(
             lin.cpu().numpy(), quad.cpu().numpy(), const.cpu().numpy(),
             precision=mode, device=dev)
-        lp, qp, pk = sc.lin, sc.quad, sc.packed
+        lp, qp, pk = sc.lin, sc.quad, sc.packed()
         got = fused_mixture_scores(x, lp, qp, const, mode, packed=pk)
         ref = fused_mixture_scores_ref(x, lp, qp, const, mode)
         torch.cuda.synchronize()
@@ -254,15 +270,15 @@ def check_k1(dev, floored: bool, modes, T: int = T_K1,
         err_x = (got.double() - exact).abs()
         err_r = (ref.double() - exact).abs()
         r = {"max_abs_err": float(err_p.max()),
-             "worst_err_over_bound": float((err_p / (SAME_MODE[mode] * M)
-                                            ).max()),
+             "worst_err_over_bound": float(
+                 (err_p / (SAME_MODE[mode](D) * M)).max()),
              "max_abs_err_vs_fp64": float(err_x.max()),
              "worst_fp64_err_over_bound":
-                 float((err_x / (MODE_BOUND[mode] * M)).max()),
+                 float((err_x / (MODE_BOUND[mode](D) * M)).max()),
              "plain_worst_fp64_err_over_bound":
-                 float((err_r / (MODE_BOUND[mode] * M)).max())}
+                 float((err_r / (MODE_BOUND[mode](D) * M)).max())}
         if timed:
-            bound_ms, bound_by = k1_bound(T, mode)
+            bound_ms, bound_by = k1_bound(T, mode, exps_per_s, D)
             r.update({
                 "ms": cuda_ms(lambda: fused_mixture_scores(
                     x, lp, qp, const, mode, packed=pk)),
@@ -746,9 +762,11 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     phase_build()
-    check_k1(dev, floored=False, modes=MODES)
-    check_k1(dev, floored=True, modes=MODES, timed=False)
-    k1 = check_k1(dev, floored=False, modes=MODES, T=T_MAIN)
+    exps = info["exps_per_s"]
+    check_k1(dev, floored=False, modes=MODES, exps_per_s=exps)
+    check_k1(dev, floored=True, modes=MODES, exps_per_s=exps, timed=False)
+    k1 = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps, T=T_MAIN)
+    check_k1(dev, floored=False, modes=MODES, exps_per_s=exps, D=D_WIDE)
     cont = fixture.build(SEED)
     sl = phase_slice(dev, cont)
     semi = fixture.build(SEED, model="semi")

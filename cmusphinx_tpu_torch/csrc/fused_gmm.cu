@@ -16,8 +16,11 @@
 // 3.35 TB/s): arithmetic, not memory.  The least time of each mode:
 //   highest  3xTF32 on the tensor cores at 495 TFLOP/s        0.31 ms
 //   high     3 bf16 products at 989 TFLOP/s                   0.16 ms
-//   bf16     the exps on the special-function units (~3.9 T/s) 0.085 ms
-//            (one bf16 product alone would take 0.05 ms)
+//   bf16     the exps on the special-function units            0.079 ms
+//            (16 a clock per SM, 132 SMs at 1.98 GHz: 4.18 T/s; one
+//            bf16 product alone would take 0.05 ms)
+// That the exps run on those units alone is this design's assumption, not
+// a hard limit: some of them could run as FMA polynomials.
 //
 // The design.
 //   - One product, not two: A = [x | x^2] per frame and B = [lin | -quad]
@@ -63,6 +66,11 @@
 //     tile's epilogue with the next tile's products, a deeper ring, split
 //     bulk copies, 4 warpgroups (register spills), the consts read from
 //     the shared-memory stage.
+//   - Depth: one instantiation a depth, Dp = 16..128, so D <= 64
+//     (ops/fused_gmm.py MAX_D; wider models take the plain version).  The
+//     ring of "highest" has one stage (Geom::FREE) at Dp >= 112 (D >= 49),
+//     that of "high" at Dp = 128 (D >= 57): there a tile's bulk copy no
+//     longer overlaps the products of the one before.
 //   - What holds it back (builds with parts cut out, PERF.md): without the
 //     epilogue the time is the same, and without the products too a
 //     large part stays: the per-tile pipeline, not the arithmetic, sets

@@ -10,12 +10,14 @@ plain version `fused_mixture_scores_ref`.  It never falls back from one to
 the other.  `fused_mixture_scores.launches` counts the kernel's launches.
 
 The plain version takes the parameters senone-major — lin/quad `[S, K, D]`,
-const `[S, K]`.  The kernel takes them packed by `pack_params` (once, at
-scorer construction): one tensor-core operand B = [lin | -quad] per
+const `[S, K]`.  The kernel reads only their packed form, `pack_params`
+(made once by the scorer): one tensor-core operand B = [lin | -quad] per
 density, in senone tiles laid out as the kernel's shared memory holds them,
 each operand split into the parts its precision mode multiplies (tf32 or
 bf16 hi and lo), K padded to a power of two with pad densities of const
--1e30, S padded to whole tiles (see the note in the CUDA source).
+-1e30, S padded to whole tiles (see the note in the CUDA source).  The
+kernel takes D <= `MAX_D`; wider features are scored by the plain version
+only (`ContinuousScorer(..., kernel=False)`).
 
 The kernel is compiled with nvcc for sm_90a at first use into `build/` at
 the repository root (git-ignored), named by a hash of its source, and
@@ -42,6 +44,10 @@ _MODE = {"highest": 0, "high": 1, "bf16": 2}
 TILE_N = {"highest": 64, "high": 128, "bf16": 128}
 # Const of the pad densities: exp() of it is 0 (pallas_gmm._PAD_CONST).
 PAD_CONST = -1e30
+# The widest feature vector K1 takes: its depth 2D, rounded up to 16, is at
+# most 128, the widest the kernel instantiates (A and one ring stage of B
+# fill the shared memory there in "highest" and "high").
+MAX_D = 64
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gmm.cu"
@@ -164,6 +170,10 @@ def pack_params(lin: torch.Tensor, quad: torch.Tensor, const: torch.Tensor,
     K1's packed senone tiles, on the parameters' device."""
     _check_params(lin, quad, const, precision)
     S, K, D = lin.shape
+    if D > MAX_D:
+        raise ValueError(f"K1 takes features of D <= {MAX_D}, got D={D}; "
+                         f"score this model with the plain version "
+                         f"(ContinuousScorer(..., kernel=False))")
     kp = max(8, 1 << (K - 1).bit_length())
     dp = -(-2 * D // 16) * 16
     n = TILE_N[precision]
@@ -258,42 +268,43 @@ def _check_params(lin, quad, const, precision):
                         f"got {lin.dtype}/{quad.dtype}")
 
 
-def _check(x, lin, quad, const, precision):
-    _check_params(lin, quad, const, precision)
-    if x.dim() != 2 or x.shape[1] != lin.shape[2]:
-        raise ValueError(f"expected x [T, {lin.shape[2]}], got "
-                         f"{tuple(x.shape)}")
+def _check_x(x, D):
+    if x.dim() != 2 or x.shape[1] != D:
+        raise ValueError(f"expected x [T, {D}], got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError("x must be float32")
-    devs = {t.device for t in (x, lin, quad, const)}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {devs}")
 
 
 def fused_mixture_scores(x: torch.Tensor, lin: torch.Tensor,
                          quad: torch.Tensor, const: torch.Tensor,
                          precision: str = "highest",
                          packed: Packed | None = None) -> torch.Tensor:
-    """x [T, D] f32; lin/quad [S, K, D] (f32, or bf16 in bf16 mode);
-    const [S, K] f32 -> [T, S] f32 log mixture scores.
+    """x [T, D] f32 -> [T, S] f32 log mixture scores.
 
-    CUDA tensors launch the K1 kernel on `packed` (`pack_params` of these
-    parameters in this mode, packed here when not given); CPU tensors take
-    the plain version."""
-    _check(x, lin, quad, const, precision)
+    CPU tensors take the plain version on lin/quad [S, K, D] (f32, or bf16
+    in bf16 mode) and const [S, K] f32.  CUDA tensors launch the K1 kernel
+    on `packed`, which they require (`pack_params` of those parameters in
+    this mode): the kernel reads nothing else of the model."""
     if x.device.type == "cpu":
+        _check_params(lin, quad, const, precision)
+        _check_x(x, lin.shape[2])
+        devs = {t.device for t in (x, lin, quad, const)}
+        if len(devs) != 1:
+            raise ValueError(f"tensors on different devices: {devs}")
         return fused_mixture_scores_ref(x, lin, quad, const, precision)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
+    if packed is None:
+        raise ValueError("K1 runs on packed parameters: pass "
+                         "packed=pack_params(lin, quad, const, precision)")
+    _check_x(x, packed.D)
+    if packed.precision != precision or packed.tiles.device != x.device:
+        raise ValueError(f"parameters packed for {packed.precision!r} on "
+                         f"{packed.tiles.device}, not {precision!r} on "
+                         f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    S, K, D = lin.shape
-    if packed is None:
-        packed = pack_params(lin, quad, const, precision)
-    if ((packed.precision, packed.S, packed.K, packed.D)
-            != (precision, S, K, D) or packed.tiles.device != x.device):
-        raise ValueError("packed parameters of another model, mode or device")
-    T = x.shape[0]
+    T, S, D = x.shape[0], packed.S, packed.D
     out = torch.empty((T, S), dtype=torch.float32, device=x.device)
     if T == 0:
         return out
@@ -306,8 +317,9 @@ def fused_mixture_scores(x: torch.Tensor, lin: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib.fused_gmm_launch(
             _MODE[precision], x.data_ptr(), packed.tiles.data_ptr(),
-            packed.const.data_ptr(), out.data_ptr(), T, S, D, packed.dp, packed.kp.bit_length() - 1,
-            packed.n_tile, n_tiles, tile_bytes, stream)
+            packed.const.data_ptr(), out.data_ptr(), T, S, D, packed.dp,
+            packed.kp.bit_length() - 1, packed.n_tile, n_tiles, tile_bytes,
+            stream)
     if err != 0:
         raise RuntimeError(f"K1 fused_gmm launch failed: CUDA error {err}")
     fused_mixture_scores.launches += 1

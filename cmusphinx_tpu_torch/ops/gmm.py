@@ -30,8 +30,9 @@ import torch
 from torch import nn
 
 from ..models.gauden import GaussianParams
-from .fused_gmm import (PRECISIONS, _REF_CHUNK_BYTES, fused_mixture_scores,
-                        fused_mixture_scores_ref, pack_params)
+from .fused_gmm import (PRECISIONS, _REF_CHUNK_BYTES, Packed,
+                        fused_mixture_scores, fused_mixture_scores_ref,
+                        pack_params)
 from .fused_gmm import mask_topn as _mask_topn
 
 GEMM_PRECISIONS = PRECISIONS
@@ -147,14 +148,13 @@ class ContinuousScorer(nn.Module):
 
     Buffers: `lin`, `quad` [S, K, D] (bf16 in bf16 mode, else f32) and
     `const` [S, K] f32, so score[t,s] = logsumexp_k(const[s,k] +
-    x_t.lin[s,k] - x_t^2.quad[s,k]); on the card also `packed`, the same
-    parameters packed once for K1 (`fused_gmm.pack_params`).  With
-    `topn == 0`, `score` sends CUDA tensors to the K1 kernel and CPU
-    tensors to its plain version.  With
-    `topn > 0` (keep each senone's top-N densities, reference eval_topn
-    semantics) it takes the plain path on any device, as the reference
-    does.  With `kernel=False` it calls the plain version on any device (the
-    reference decode that the kernel is held against)."""
+    x_t.lin[s,k] - x_t^2.quad[s,k]).  With `topn == 0`, `score` sends CUDA
+    tensors to the K1 kernel, on the same parameters packed for it
+    (`packed`), and CPU tensors to its plain version.  With `topn > 0`
+    (keep each senone's top-N densities, reference eval_topn semantics) it
+    takes the plain path on any device, as the reference does.  With
+    `kernel=False` it calls the plain version on any device (the reference
+    decode that the kernel is held against)."""
 
     def __init__(self, gauden: GaussianParams, ln_mixw: np.ndarray, *,
                  topn: int = 0, precision: str = "highest",
@@ -199,9 +199,32 @@ class ContinuousScorer(nn.Module):
         self.register_buffer("quad", param(quad))
         self.register_buffer("const", torch.as_tensor(_f32(const)).to(device))
         self.n_sen, self.n_density = self.lin.shape[0], self.lin.shape[1]
-        # K1's packed senone tiles, made once (on the card only).
-        self.packed = (pack_params(self.lin, self.quad, self.const, precision)
-                       if self.lin.device.type == "cuda" else None)
+        self._packed = None
+        if self.kernel and not self.topn and self.lin.device.type == "cuda":
+            self.packed()
+
+    def _buffers_now(self):
+        """lin, quad and const with their in-place edit counts."""
+        return [(t, -1 if t.is_inference() else t._version)
+                for t in (self.lin, self.quad, self.const)]
+
+    def packed(self) -> Packed:
+        """K1's operands (`fused_gmm.pack_params`) of the current lin, quad
+        and const: packed once, and again only after one of them was
+        replaced or edited in place (`load_state_dict`, `copy_`)."""
+        now = self._buffers_now()
+        if self._packed is None or any(
+                a is not b or u != v
+                for (a, u), (b, v) in zip(self._packed[0], now)):
+            self._packed = (now, pack_params(self.lin, self.quad, self.const,
+                                             self.precision))
+        return self._packed[1]
+
+    def _apply(self, *args, **kwargs):
+        # The buffers move or change type (`.to`, `.cuda`): the packed
+        # operands are dropped here and made again where they are used.
+        self._packed = None
+        return super()._apply(*args, **kwargs)
 
     def score(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [..., T, D] -> [..., T, S]."""
@@ -210,8 +233,9 @@ class ContinuousScorer(nn.Module):
             out = fused_mixture_scores_ref(x, self.lin, self.quad, self.const,
                                            self.precision, topn=self.topn)
         elif self.kernel:
+            packed = self.packed() if x.device.type == "cuda" else None
             out = fused_mixture_scores(x, self.lin, self.quad, self.const,
-                                       self.precision, packed=self.packed)
+                                       self.precision, packed=packed)
         else:
             out = fused_mixture_scores_ref(x, self.lin, self.quad, self.const,
                                            self.precision)

@@ -80,7 +80,7 @@ def _k1_model(rng, S, K, D, floored=False):
 
 @pytest.mark.parametrize("S,K,D,T", [(301, 32, 39, 517), (37, 4, 13, 129),
                                      (19, 1, 51, 64), (5, 256, 39, 300),
-                                     (1000, 8, 39, 1)])
+                                     (1000, 8, 39, 1), (23, 8, 64, 130)])
 @pytest.mark.parametrize("mode", ["highest", "high", "bf16"])
 def test_k1_matches_plain_version(cuda, mode, S, K, D, T):
     rng = np.random.RandomState(S + K + D + T)
@@ -89,7 +89,7 @@ def test_k1_matches_plain_version(cuda, mode, S, K, D, T):
     x = torch.as_tensor(rng.randn(T, D).astype(np.float32), device=cuda)
     before = fused_mixture_scores.launches
     got = fused_mixture_scores(x, sc.lin, sc.quad, sc.const, mode,
-                               packed=sc.packed)
+                               packed=sc.packed())
     torch.cuda.synchronize()
     assert fused_mixture_scores.launches == before + 1
     assert got.shape == (T, S) and bool(torch.isfinite(got).all())
@@ -98,11 +98,35 @@ def test_k1_matches_plain_version(cuda, mode, S, K, D, T):
     err = (got.double() - want.double()).abs()
     bound = SAME_BOUND[mode] * D * 2.0 ** -22 * M
     assert bool((err <= bound).all()), float((err / bound).max())
-    # Packed here when not given; the same launch.
-    again = fused_mixture_scores(x, sc.lin, sc.quad, sc.const, mode)
-    assert torch.equal(again, got)
+    # The kernel runs on packed parameters only: no packing in the wrapper.
+    with pytest.raises(ValueError, match="packed"):
+        fused_mixture_scores(x, sc.lin, sc.quad, sc.const, mode)
+    assert fused_mixture_scores.launches == before + 1
     assert fused_mixture_scores(x[:0], sc.lin, sc.quad, sc.const, mode,
-                                packed=sc.packed).shape == (0, S)
+                                packed=sc.packed()).shape == (0, S)
+
+
+def test_k1_follows_a_scorer_moved_to_the_card(cuda):
+    rng = np.random.RandomState(5)
+    g, lnw, _, _ = _k1_model(rng, 40, 8, 13)
+    sc = ContinuousScorer(g, lnw, device="cpu")
+    x = torch.as_tensor(rng.randn(50, 13).astype(np.float32))
+    want = sc.score(x)
+    sc.to(cuda)
+    p = sc.packed()
+    assert sc.packed() is p and p.tiles.device.type == "cuda"
+    M = _magnitude(x, sc.lin.cpu(), sc.quad.cpu(), sc.const.cpu())
+    bound = SAME_BOUND["highest"] * 13 * 2.0 ** -22 * M
+    assert bool(((sc.score(x.to(cuda)).cpu() - want).abs() <= bound).all())
+    with torch.no_grad():
+        sc.const.add_(1.0)
+    got = sc.score(x.to(cuda)).cpu()
+    assert sc.packed() is not p
+    want = fused_mixture_scores_ref(x, sc.lin.cpu(), sc.quad.cpu(),
+                                    sc.const.cpu())
+    M = _magnitude(x, sc.lin.cpu(), sc.quad.cpu(), sc.const.cpu())
+    bound = SAME_BOUND["highest"] * 13 * 2.0 ** -22 * M
+    assert bool(((got - want).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("mode", ["highest", "high", "bf16"])

@@ -431,3 +431,49 @@ def test_split_arithmetic_within_mode_bound_floored(mode):
     M = _magnitude(x, lin, quad, const)
     assert SPLIT_BOUND[mode] <= (MODE_BOUND[mode] or D * 2.0 ** -22)
     _within(got, _exact(x, lin, quad, const), SPLIT_BOUND[mode] * M)
+
+
+def test_scorer_packs_for_the_kernel_only_and_follows_its_buffers():
+    from cmusphinx_tpu_torch.ops.fused_gmm import pack_params
+    rng = np.random.RandomState(12)
+    g, lnw, x = _gauden(rng, 9, 4, 13)
+    xt = torch.as_tensor(x)
+    # CPU tensors, top-N and the plain scorer never reach K1: no packing.
+    for kw in ({}, {"topn": 2}, {"kernel": False}):
+        sc = ContinuousScorer(g, lnw, device="cpu", **kw)
+        sc.score(xt)
+        assert sc._packed is None
+    sc = ContinuousScorer(g, lnw, device="cpu")
+    p = sc.packed()
+    assert sc.packed() is p                              # packed once
+    fresh = pack_params(sc.lin, sc.quad, sc.const, "highest")
+    assert torch.equal(p.tiles, fresh.tiles) and torch.equal(p.const, fresh.const)
+    state = {k: v.clone() for k, v in sc.state_dict().items()}
+    with torch.no_grad():
+        sc.lin.mul_(2.0)                                 # edited in place
+    p2 = sc.packed()
+    assert p2 is not p and not torch.equal(p2.tiles, p.tiles)
+    sc.load_state_dict(state)                            # copied back in place
+    p3 = sc.packed()
+    assert p3 is not p2 and torch.equal(p3.tiles, p.tiles)
+    sc.quad = sc.quad.clone()                            # replaced
+    assert sc.packed() is not p3
+    sc.to("cpu")                                         # moved: dropped
+    assert sc._packed is None
+
+
+def test_k1_takes_features_up_to_max_d():
+    from cmusphinx_tpu_torch.ops.fused_gmm import MAX_D, pack_params
+    rng = np.random.RandomState(13)
+    for D in (MAX_D, MAX_D + 1):
+        g, lnw, x = _gauden(rng, 5, 4, D)
+        sc = ContinuousScorer(g, lnw, device="cpu")
+        # The plain version takes any width.
+        assert sc.score(torch.as_tensor(x)).shape == (len(x), 5)
+        if D <= MAX_D:
+            assert sc.packed().dp == 2 * MAX_D
+            continue
+        with pytest.raises(ValueError, match=f"D <= {MAX_D}"):
+            sc.packed()
+        with pytest.raises(ValueError, match=f"D <= {MAX_D}"):
+            pack_params(sc.lin, sc.quad, sc.const)

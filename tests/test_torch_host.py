@@ -147,12 +147,12 @@ def _read(case, mods, model_dirs, tmp):
         return mods["lmset"].NgramModelSet.read_lmctl(path, basedir=tmp)
     if case == "mllr":
         rng = np.random.RandomState(3)
-        t = t_mllr.MllrTransform(
+        path = os.path.join(tmp, f"mllr.{mods['tag']}")
+        mods["mllr"].MllrTransform(
             A=[rng.randn(2, 13, 13).astype(np.float32)],
             b=[rng.randn(2, 13).astype(np.float32)],
-            h=[np.ones((2, 13), np.float32)])
-        t.write(os.path.join(tmp, "mllr"))
-        return mods["mllr"].MllrTransform.read(os.path.join(tmp, "mllr"))
+            h=[np.ones((2, 13), np.float32)]).write(path)
+        return mods["mllr"].MllrTransform.read(path), open(path, "rb").read()
     if case == "config":
         arg = mods["config"].Arg
         table = [arg(*dataclasses.astuple(a)) for a in FEAT_ARGS]
@@ -160,12 +160,12 @@ def _read(case, mods, model_dirs, tmp):
         cfg.update_from_file(os.path.join(hmm, "feat.params"))
         return cfg
     if case == "bio":
-        path = os.path.join(tmp, "u.mfc")
-        t_bio.write_mfc(path, fx.ceps[0])
+        path = os.path.join(tmp, f"u.{mods['tag']}.mfc")
+        mods["bio"].write_mfc(path, fx.ceps[0])
         s3 = mods["bio"].S3File.open(os.path.join(hmm, "means"))
         with s3.fh:
             head = (s3.hdr, s3.swap, s3.read_int32(4), s3.read_float32(8))
-        return mods["bio"].read_mfc(path), head
+        return mods["bio"].read_mfc(path), head, open(path, "rb").read()
     raise AssertionError(case)
 
 
