@@ -54,6 +54,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    entries; the same numbers, and the same CPU hold, its search part over
    all 16 utterances of the batch.
 
+Phases 10-14 run beside the phases whose state they reuse: 10
+after 3, 11 and 14 after 4, 13 after 7, 12 after 8.
+
+10. k1 at the stream's shape: phase 3's checks and times at T=50 (one
+   50-frame chunk of a stream).
+11. stream: four utterances of the continuous fixture (the batch features
+   of phase 4) through NgramSearch.stream_start / stream_push (50-frame
+   pushes, stream_partial after each) / stream_end, one of them from a
+   100-frame tape that must grow: the tape equal to the utterance's row of
+   phase 4's batch (integers equal, floats within rtol 1e-5 over its T*E
+   slots), the final hypothesis equal to the batch's, each partial but its
+   last word (the word under way) a prefix of the final, K1 launched at
+   least once a chunk; push -> partial latency p50 / p99 (host clock
+   around synchronised work), the partial's share of it, and the
+   streaming xRT.
+12. stream_tree: utterance 0 of phase 8's 20,000-word tree streamed the
+   same way and held to its batch row; K1 launched; latency and xRT.
+13. decoder_stream: Decoder(streaming=True) on both model directories:
+   cepstra in 25-frame pieces and PCM in 0.25-s pieces, a partial after
+   each; final hypotheses equal to the CPU Decoder's on the same inputs;
+   nbest(10) and get_prob after each.
+14. lattice: for each utterance of phase 4's batch, get_lattice (node
+   count, ms to build), bestpath by the native runtime (which must load)
+   against the pure-Python bestpath, nbest(10) (ms to rescore); then
+   decode_batch_cep(bestpath=True): its wall time and WER.
+
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
 """
@@ -74,11 +100,13 @@ import torch
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.decode import lattice as lattice_mod
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
                                      SemiContinuousScorer, fused_gmm)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
+from cmusphinx_tpu_torch.utils import native
 from cmusphinx_tpu_torch.utils.bio import write_mfc
 
 SEED = 0
@@ -119,6 +147,15 @@ PS_DIFF_SHARE = 1e-3
 # lifter (tests/test_torch_fe.py).
 LOGMEL_TOL = 1e-4
 DECODER_UTTS = 4
+# The streaming phases: a stream's chunk, the utterances streamed, and the
+# Decoder's pieces (25 cepstral frames, 0.25 s of PCM).
+T_STREAM = NgramSearch.CHUNK
+STREAM_UTTS = 4
+CEP_PIECE, RAW_PIECE_S = 25, 0.25
+# Bestpath by the native runtime (float32 sums) against the pure-Python
+# path (float64) on the same lattice: words equal, scores within the
+# tapes' float tolerance.
+LATTICE_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -367,7 +404,7 @@ def phase_slice(dev, fx) -> dict:
            "word_errors": errs, "ref_words": n_ref,
            "wer": errs / n_ref}
     emit(out)
-    return out
+    return out, (search, fp, tapes, hyps)
 
 
 # ----------------------------------------------------------------------
@@ -754,6 +791,215 @@ def phase_large_vocab(dev, card: str, name: str, fx, make_scorer,
            "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref,
            **hold}
     emit(out)
+    return out, (search, fp, tapes, hyps)
+
+
+# ----------------------------------------------------------------------
+def batch_features(search, fp, fx) -> list:
+    """The features phase 4's batch decoded, per utterance on the host."""
+    c, T, Ts = search._pad(fx.ceps)
+    with torch.inference_mode():
+        feats = fp._padded_kernel(c, T, True).cpu().numpy()
+    return [feats[i, :Ts[i]] for i in range(len(Ts))]
+
+
+def run_stream(search, feats: np.ndarray, max_frames: int):
+    """One utterance through the stream in CHUNK pushes, a partial after
+    each: (final, partial word lists, [(push -> partial ms, of it the
+    partial's ms)], state).  The push is not synchronised apart: its
+    device work finishes inside the partial's host copy."""
+    st = search.stream_start(max_frames=max_frames)
+    partials, lat_ms = [], []
+    for i in range(0, len(feats), T_STREAM):
+        t0 = time.perf_counter()
+        search.stream_push(st, feats[i: i + T_STREAM])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        partials.append(search.stream_partial(st).words)
+        t2 = time.perf_counter()
+        lat_ms.append((1e3 * (t2 - t0), 1e3 * (t2 - t1)))
+    return search.stream_end(st), partials, lat_ms, st
+
+
+def hold_stream(search, final, partials, tapes, i: int, hyp) -> dict:
+    """The stream's tape against row i of a batch's host tapes over its
+    T*E slots, its final hypothesis against the batch's, and its partials
+    against the final (each but its last word, the word under way, a
+    prefix of the final)."""
+    E, T = search.E, search._last[6]
+    int_diff, rel = 0, 0.0
+    for x, y in zip(search._last[:6], tapes):
+        y = y[i, :T * E]
+        if x.dtype.kind == "f":
+            rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(
+                np.abs(y), 1e-30))))
+        else:
+            int_diff += int((x != y).sum())
+
+    def segs(h):
+        return [(s.word, s.start_frame, s.end_frame) for s in h.segments]
+    return {"int_values_differing": int_diff, "float_max_rel_diff": rel,
+            "final_equal": final.words == hyp.words
+            and segs(final) == segs(hyp),
+            "final_score_rel_diff": abs(final.score - hyp.score)
+            / abs(hyp.score),
+            "partials": len(partials),
+            "partials_strict_prefix": sum(
+                final.words[: len(p)] == p for p in partials),
+            "partials_prefix_but_last": all(
+                final.words[: max(len(p) - 1, 0)] == p[:-1]
+                for p in partials)}
+
+
+def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
+                 max_frames) -> dict:
+    """`utts` utterances streamed (max_frames[k] for the k-th), counted
+    and timed, each held to its batch row (`hold_stream`)."""
+    fused_mixture_scores.launches = 0
+    torch.cuda.synchronize()
+    holds, lat_ms, chunks, grew = [], [], 0, []
+    wall = 0.0
+    for i, mf in zip(utts, max_frames):
+        t0 = time.perf_counter()
+        final, partials, ms, st = run_stream(search, feats_list[i], mf)
+        wall += time.perf_counter() - t0
+        holds.append(hold_stream(search, final, partials, tapes, i, hyps[i]))
+        lat_ms += ms
+        chunks += -(-len(feats_list[i]) // T_STREAM)
+        grew.append(st["max_frames"] > mf)
+    launches = fused_mixture_scores.launches
+    audio_s = sum(len(feats_list[i]) for i in utts) / 100.0
+    total, partial = np.array(lat_ms).T
+    out = {"phase": name, "utterances": len(utts), "chunk_frames": T_STREAM,
+           "chunks": chunks, "k1_launches": launches,
+           "tape_grew": grew, "audio_s": audio_s, "stream_wall_s": wall,
+           "xRT": audio_s / wall,
+           "push_partial_ms_p50": float(np.percentile(total, 50)),
+           "push_partial_ms_p99": float(np.percentile(total, 99)),
+           "push_partial_ms_max": float(total.max()),
+           "partial_ms_p50": float(np.percentile(partial, 50)),
+           "partial_ms_p99": float(np.percentile(partial, 99)),
+           "pushes": len(total), "holds": holds}
+    emit(out)
+    bad = [h for h in holds if h["int_values_differing"]
+           or h["float_max_rel_diff"] > 1e-5 or not h["final_equal"]
+           or not h["partials_prefix_but_last"]]
+    if bad:
+        raise AssertionError(f"{name}: the stream and the batch differ: {bad}")
+    if launches < chunks:
+        raise AssertionError(f"{name}: K1 launched {launches} times for "
+                             f"{chunks} chunks")
+    if max_frames[0] < max(len(feats_list[i]) for i in utts) and not any(grew):
+        raise AssertionError(f"{name}: the tape never grew")
+    return out
+
+
+def phase_decoder_stream(dev, fixtures) -> dict:
+    out = {"phase": "decoder_stream", "models": {}}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, fx in fixtures.items():
+            kw = fixture.write_model_dir(fx, os.path.join(tmp, model))
+            gpu, cpu = Decoder(device=dev, **kw), Decoder(device="cpu", **kw)
+            rate = float(gpu.config["samprate"])
+            inputs = {"cep": (fx.ceps[0], CEP_PIECE),
+                      "raw": (fixture.synthetic_pcm(SEED, 2.0, int(rate))
+                              .astype(np.float32), int(RAW_PIECE_S * rate))}
+            res = {}
+            for kind, (data, step) in inputs.items():
+                finals = []
+                for dec in (gpu, cpu):
+                    fused_gmm.fused_mixture_scores.launches = 0
+                    ms = []
+                    t0 = time.perf_counter()
+                    dec.start_utt(streaming=True)
+                    for i in range(0, len(data), step):
+                        t1 = time.perf_counter()
+                        getattr(dec, f"process_{kind}")(data[i: i + step])
+                        dec.hyp()
+                        ms.append(1e3 * (time.perf_counter() - t1))
+                    h = dec.end_utt()
+                    wall = time.perf_counter() - t0
+                    finals.append((h, ms, wall, len(dec.nbest(10)),
+                                   dec.get_prob(),
+                                   fused_gmm.fused_mixture_scores.launches))
+                (g, gms, gwall, gnb, gprob, gl), (c, *_) = finals
+                launches += gl
+                same = (g.words == c.words and
+                        [(s.start_frame, s.end_frame) for s in g.segments]
+                        == [(s.start_frame, s.end_frame) for s in c.segments])
+                res[kind] = {"pieces": len(gms), "words": len(g.words),
+                             "equal_to_cpu": same,
+                             "score_rel_diff": abs(g.score - c.score)
+                             / abs(c.score) if c.segments else 0.0,
+                             "piece_ms_p50": float(np.percentile(gms, 50)),
+                             "wall_s": gwall, "nbest": gnb, "prob": gprob,
+                             "k1_launches": gl}
+                if not same or not (0.0 < gprob <= 1.0) or gnb < 1:
+                    raise AssertionError(f"decoder_stream {model} {kind}: "
+                                         f"{res[kind]}, card {g}, cpu {c}")
+                if (gl > 0) != (model == "cont"):
+                    raise AssertionError(f"decoder_stream {model}: K1 "
+                                         f"launched {gl} times")
+            out["models"][model] = res
+    out["k1_launches"] = launches
+    emit(out)
+    return out
+
+
+def phase_lattice(search, fp, fx, hyps) -> dict:
+    """Phase 4's batch: each utterance's lattice and its rescoring."""
+    if not native.loaded():
+        raise AssertionError("the native runtime did not build or load")
+    bplw, start = float(search.config["bestpathlw"]), search.start_lmwid
+    rows = []
+    for i in range(len(fx.ceps)):
+        t0 = time.perf_counter()
+        search.select_utt(i)
+        lat = search.get_lattice()
+        t1 = time.perf_counter()
+        best = lat.bestpath(lw=bplw, start_lmwid=start)
+        t2 = time.perf_counter()
+        nb = lat.nbest(10, start_lmwid=start)
+        post = lat.posterior(1.0 / float(search.config["ascale"]))
+        own, lattice_mod._native = lattice_mod._native, None
+        try:
+            py = lat.bestpath(lw=bplw, start_lmwid=start)
+        finally:
+            lattice_mod._native = own
+        rows.append({"nodes": len(lat.nodes), "build_ms": 1e3 * (t1 - t0),
+                     "rescore_ms": 1e3 * (t2 - t1), "nbest": len(nb),
+                     "words_equal": best.words == py.words,
+                     "score_rel_diff": abs(best.score - py.score)
+                     / abs(py.score),
+                     "posterior_finite": int(np.isfinite(post).sum())})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rescored = search.decode_batch_cep(fx.ceps, fp, bestpath=True)
+    bp_s = time.perf_counter() - t0
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, rescored))
+    out = {"phase": "lattice", "native_loaded": native.loaded(),
+           "utterances": len(rows),
+           "nodes": [r["nodes"] for r in rows],
+           "build_ms_median": statistics.median(r["build_ms"] for r in rows),
+           "rescore_ms_median": statistics.median(r["rescore_ms"]
+                                                  for r in rows),
+           "nbest_counts": [r["nbest"] for r in rows],
+           "native_python_words_equal": all(r["words_equal"] for r in rows),
+           "native_python_score_max_rel_diff": max(r["score_rel_diff"]
+                                                   for r in rows),
+           "bestpath_batch_s": bp_s,
+           "bestpath_differs_from_viterbi": sum(
+               a.words != b.words for a, b in zip(rescored, hyps)),
+           "bestpath_word_errors": errs,
+           "ref_words": sum(len(r) for r in fx.transcripts)}
+    emit(out)
+    if not out["native_python_words_equal"] or \
+            out["native_python_score_max_rel_diff"] > LATTICE_RTOL or \
+            min(out["nodes"]) < 1 or \
+            min(out["nbest_counts"]) < 1:
+        raise AssertionError(f"lattice: {out}")
     return out
 
 
@@ -767,21 +1013,32 @@ def main() -> int:
     check_k1(dev, floored=True, modes=MODES, exps_per_s=exps, timed=False)
     k1 = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps, T=T_MAIN)
     check_k1(dev, floored=False, modes=MODES, exps_per_s=exps, D=D_WIDE)
+    k1_stream = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps,
+                         T=T_STREAM)
     cont = fixture.build(SEED)
-    sl = phase_slice(dev, cont)
+    sl, (search, fp, tapes, hyps) = phase_slice(dev, cont)
+    stream = stream_phase("stream", search, batch_features(search, fp, cont),
+                          tapes, hyps, range(STREAM_UTTS),
+                          [2 * T_STREAM] + [3000] * (STREAM_UTTS - 1))
+    phase_lattice(search, fp, cont, hyps)
+    del search, fp, tapes, hyps
     semi = fixture.build(SEED, model="semi")
     phase_semicont_scorer(dev, semi)
     phase_semicont_slice(dev, semi)
     dec = phase_decoder(dev, {"cont": cont, "semi": semi})
+    dec_stream = phase_decoder_stream(dev, {"cont": cont, "semi": semi})
     card = info["nvidia_smi"]
     large = fixture.build(SEED, size=fixture.LARGE)
-    tree = phase_large_vocab(
+    tree, (search, fp, tapes, hyps) = phase_large_vocab(
         dev, card, "large_vocab_tree", large,
         lambda d: ContinuousScorer(large.gauden, large.ln_mixw, device=d),
         "tree", "hashed", hold_utts=1)
     if tree["k1_launches"] < 1:
         raise AssertionError("the tree decode did not launch K1")
-    del large
+    stream_tree = stream_phase("stream_tree", search,
+                               batch_features(search, fp, large), tapes, hyps,
+                               [0], [3000])
+    del large, search, fp, tapes, hyps
     semi5k = fixture.build(SEED, model="semi", size=fixture.LARGE_5K)
     raw, meta = fixture.sendump_bytes(semi5k)
     phase_large_vocab(
@@ -790,17 +1047,19 @@ def main() -> int:
                                  topn=TOPN, wrap_uint8=meta["n_bits"] == 4,
                                  device=d),
         "flat", "rows", hold_utts=len(semi5k.ceps))
-    main_mode = k1["highest"]
+    # The batch's shape (T=9,600) keys the row; the stream's (T=50, one
+    # chunk) rides beside it.
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     emit({"kernels": [{
         "name": "fused_gmm", "route": "cuda",
         "source": "cmusphinx_tpu_torch/csrc/fused_gmm.cu",
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
-        "launches": (sl["k1_launches"] + dec["k1_launches"]
-                     + tree["k1_launches"]),
-        "max_abs_err": main_mode["max_abs_err"],
-        "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"],
-        "bound_ms": main_mode["bound_ms"], "bound_by": main_mode["bound_by"],
-        "library_ms": main_mode["library_ms"]}]})
+        "launches": sum(p["k1_launches"] for p in (
+            sl, dec, tree, stream, stream_tree, dec_stream)),
+        **{k: k1["highest"][k] for k in keys},
+        "stream_shape": {"T": T_STREAM, **{k: k1_stream["highest"][k]
+                                           for k in keys}}}]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

@@ -1,12 +1,20 @@
 """Top-level decoder API (port of `cmusphinx_tpu/api.py`: `DECODER_ARGS` and
-the non-streaming N-gram path of `Decoder`).
+the N-gram path of `Decoder`, batch and streaming, with its results).
 
     d = Decoder(hmm=".../model_dir", lm=".../lm.arpa", dict=".../words.dict",
                 device="cuda")
-    d.start_utt()
-    d.process_raw(samples)         # any number of chunks
+    d.start_utt(streaming=True)
+    for chunk in audio:
+        d.process_raw(chunk)       # decoded as it arrives
+        print(d.hyp().text)        # partial hypothesis
     d.end_utt()
-    print(d.hyp().text)
+    print(d.hyp().text, d.get_prob(), [h.text for h in d.nbest(5)])
+
+Without `streaming` the audio or cepstra are buffered and decoded whole
+at `end_utt`.  A streaming utterance runs the frontend (`FrontendStream`),
+the live feature path (prior-mode CMN and AGC, `FeatPipeline.
+normalize_live`) and the search's stream (`NgramSearch.stream_*`) chunk by
+chunk.
 
 The acoustic scorer is chosen from the model directory the way
 acmod_init_am does (acmod.c:78), in the reference's order: a `sendump`
@@ -18,8 +26,7 @@ gives `SemiContinuousScorer`, one codebook per senone `ContinuousScorer`
 pipeline, the frontend and the search live: the card ("cuda") unless the
 caller asks for "cpu".
 
-Not ported yet, and raising NotImplementedError: streaming utterances and
-lattices, n-best lists and posteriors (ROADMAP A11), the grammar, allphone
+Not ported yet, and raising NotImplementedError: the grammar, allphone
 and alignment searches (ROADMAP A12).
 """
 
@@ -43,7 +50,7 @@ from .utils.bio import read_mfc
 from .utils.config import Arg, Config
 from .decode.ngram_search import NGRAM_ARGS, NgramSearch
 from .decode.results import Hypothesis, Segment
-from .frontend.fe import FE_ARGS, Frontend
+from .frontend.fe import FE_ARGS, Frontend, FrontendStream
 from .frontend.feat import FEAT_ARGS, FeatPipeline
 from .ops.gmm import (ContinuousScorer, InterpolatedScorer, PsParityScorer,
                       PTMScorer, SemiContinuousScorer)
@@ -172,6 +179,7 @@ class Decoder:
         self._raw_chunks: List = []
         self._hyp: Optional[Hypothesis] = None
         self._in_utt = False
+        self._stream = None
 
     def _ngram_search(self, lm: NgramModel) -> NgramSearch:
         return NgramSearch(lm, self.dict, self.mdef, self.tmat, self.scorer,
@@ -213,30 +221,78 @@ class Decoder:
     # ------------------------------------------------------------------
     # Utterance API (ps_start_utt / ps_process_raw / ps_end_utt).
     def start_utt(self, streaming: bool = False) -> None:
-        """Begin an utterance; audio and cepstra are buffered until
-        `end_utt`, which decodes the whole utterance."""
+        """Begin an utterance.  With streaming=True the decoder advances on
+        every process_raw/process_cep call, its carry on the device between
+        chunks, and `hyp()` returns partial hypotheses mid-utterance.
+        Streaming uses prior-mode CMN (cmn_prior.c live semantics), since
+        batch CMN needs the whole utterance."""
         if self._in_utt:
             raise RuntimeError("utterance already started")
-        if streaming:
-            raise _not_ported("streaming decode", "A11")
         self._raw_chunks = []
         self._hyp = None
         self._in_utt = True
+        self._stream = None
+        if streaming:
+            if not isinstance(self.search, NgramSearch):
+                raise ValueError("streaming decode requires an N-gram search")
+            self._stream = self.search.stream_start()
+            self._festream = FrontendStream(self.fe)
+            self._cep_buf = np.zeros((0, 0), np.float32)
+            self._cep_done = 0  # cep frames already emitted as features
+
+    def _stream_feats(self, cep: np.ndarray, endutt: bool) -> None:
+        """Emit dynamic-feature frames whose delta context is complete.
+
+        New cepstra are normalized on arrival (fp.normalize_live) and
+        appended to a context buffer; the features are computed over
+        [done-win, avail+win), so every emitted frame has its full delta
+        window: replicate padding applies only at the utterance's ends."""
+        fp = self.fp
+        cep = fp.normalize_live(cep, endutt)
+        if cep.size:
+            self._cep_buf = (cep if self._cep_buf.size == 0
+                             else np.concatenate([self._cep_buf, cep]))
+        win = max(fp.window, 1)
+        total = self._cep_buf.shape[0]
+        avail = total if endutt else max(total - win, self._cep_done)
+        if avail <= self._cep_done:
+            return
+        lo = max(self._cep_done - win, 0)
+        feats = fp.dynamic_live(self._cep_buf[lo: total if endutt
+                                              else avail + win])
+        out = feats[self._cep_done - lo: avail - lo]
+        self._cep_done = avail
+        if out.shape[0]:
+            self.search.stream_push(self._stream, out)
 
     def process_raw(self, data: np.ndarray) -> None:
         if not self._in_utt:
             raise RuntimeError("call start_utt first")
-        self._raw_chunks.append(np.asarray(data, np.float32).ravel())
+        data = np.asarray(data, np.float32).ravel()
+        if self._stream is None:
+            self._raw_chunks.append(data)
+            return
+        # FrontendStream carries the pre-emphasis prior and the sample
+        # remainder across chunks, so chunked audio gives the cepstra of
+        # one fe.process call on all of it.
+        cep = self._festream.process(data)
+        if cep.shape[0]:
+            self._stream_feats(cep, endutt=False)
 
     def process_cep(self, cep: np.ndarray) -> None:
         if not self._in_utt:
             raise RuntimeError("call start_utt first")
-        self._raw_chunks.append(("cep", np.asarray(cep, np.float32)))
+        cep = np.asarray(cep, np.float32)
+        if self._stream is None:
+            self._raw_chunks.append(("cep", cep))
+        else:
+            self._stream_feats(cep, endutt=False)
 
     def abort_utt(self) -> None:
         """Discard any utterance in progress and reset to IDLE; safe to call
         in any state."""
         self._in_utt = False
+        self._stream = None
         self._raw_chunks = []
         self._hyp = None
 
@@ -244,6 +300,17 @@ class Decoder:
         if not self._in_utt:
             raise RuntimeError("no utterance in progress")
         self._in_utt = False
+        if self._stream is not None:
+            tail = self._festream.end_utt()
+            if tail.shape[0]:
+                self._stream_feats(tail, endutt=True)
+            elif self._cep_done < self._cep_buf.shape[0]:
+                self._stream_feats(
+                    np.zeros((0, self._cep_buf.shape[1]), np.float32),
+                    endutt=True)
+            self._hyp = self.search.stream_end(self._stream)
+            self._stream = None
+            return self._hyp
         ceps = []
         raws = [c for c in self._raw_chunks if not isinstance(c, tuple)]
         if raws:
@@ -271,21 +338,41 @@ class Decoder:
         self.process_cep(read_mfc(path))
         return self.end_utt()
 
-    # Results (ps_get_hyp / ps_seg).
+    # Results (ps_get_hyp / ps_seg / ps_nbest / ps_get_lattice / ps_get_prob).
     def hyp(self) -> Optional[Hypothesis]:
+        """Current hypothesis: partial while a streaming utterance is in
+        progress (ps_get_hyp mid-utterance), final after end_utt."""
+        if self._in_utt and self._stream is not None:
+            return self.search.stream_partial(self._stream)
         return self._hyp
 
     def seg(self) -> List[Segment]:
         return self._hyp.segments if self._hyp else []
 
     def nbest(self, n: int = 10) -> List[Hypothesis]:
-        raise _not_ported("nbest", "A11")
+        lat = self.get_lattice()
+        return lat.nbest(n, start_lmwid=self.search.start_lmwid)
 
     def get_lattice(self):
-        raise _not_ported("get_lattice", "A11")
+        return self.search.get_lattice()
 
     def get_prob(self) -> float:
-        raise _not_ported("get_prob", "A11")
+        """Posterior probability of the best hypothesis (ps_get_prob): the
+        geometric mean over its segments of their nodes' posteriors, with
+        acoustic scores scaled by 1/ascale."""
+        lat = self.search.get_lattice()
+        post = lat.posterior(ascale=1.0 / float(self.config["ascale"]))
+        best = self._hyp
+        if not best or not best.segments:
+            return 0.0
+        p = 0.0
+        for seg in best.segments:
+            for n in lat.nodes:
+                if (n.word == seg.word and n.sf == seg.start_frame
+                        and n.ef == seg.end_frame):
+                    p += float(post[n.id])
+                    break
+        return float(np.exp(p / max(len(best.segments), 1)))
 
     def add_word(self, word: str, phones: List[str]) -> int:
         """Runtime word addition (ps_add_word).  Takes effect at the next

@@ -8,8 +8,11 @@ Port of `cmusphinx_tpu/decode/ngram_search.py` (`NGRAM_ARGS`, `NgramVocab`,
 `_bgla_rows`, `_init_hmmc_tree`, the tree cores `_make_core_tree` (one copy)
 / `_make_core_tree_batched`, `device_decode`, `device_decode_batched`,
 `device_backtrace`, `_hyp_from_chase`, `decode`, `decode_batch`,
-`decode_batch_cep`).  See the reference's docstrings for the search's
-semantics.  The graph picks one of three frame steps:
+`decode_batch_cep`, the streaming decode `stream_start` / `stream_push` /
+`stream_partial` / `stream_end`, and the host results layer: the readout
+`_final_slot` / `_backtrace`, `get_lattice` and bestpath rescoring).  See
+the reference's docstrings for the search's semantics.  The graph picks
+one of three frame steps:
 
 - `_step_mpx`: multiplexed left contexts (`lcmode=mpx`), fanout or
   composite right contexts; the senone row of an entry channel rides the
@@ -38,16 +41,24 @@ What differs in form, not in result:
 - Payloads ride as int64 (uint8 for the tree's entry age); the tapes are
   stored as int32.
 
+A stream decodes one utterance (a batch of one) in chunks of `CHUNK`
+frames through the same frame steps, its carry and tape on the device
+between pushes; its partial and final hypotheses come from the host
+readout on the tape (`_backtrace`, with the host LM), as in the reference.
+Lattices are built on the host from one utterance's tape
+(`_lattice_from_tape`) and rescored by the native runtime
+(`utils/native.py`).
+
 Not ported yet (they raise NotImplementedError): more than one lexicon
-tree copy (`nlextree > 1`, ROADMAP A10b), the phone-loop lookahead
-`pl_window` (A12), bestpath rescoring and lattices, and streaming (A11).
-`maxbatch` is accepted and has no effect: chunking a batch was a
-workaround for TPU compiler crashes.
+tree copy (`nlextree > 1`, ROADMAP A10b) and the phone-loop lookahead
+`pl_window` (A12).  `maxbatch` is accepted and has no effect: chunking a
+batch was a workaround for TPU compiler crashes.
 """
 
 from __future__ import annotations
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -61,7 +72,9 @@ from ..models.ngram import NgramModel
 from ..models.ngram_device import DeviceNgram
 from ..models.tmat import TransitionMatrices
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
+from ..utils import native
 from ..utils.config import Arg, Config
+from .lattice import LatNode, Lattice
 from .lexgraph import build_word_graph
 from .results import Hypothesis, Segment
 
@@ -102,9 +115,13 @@ NGRAM_ARGS = [
         "Largest utterance batch decoded as one program in the reference; "
         "no effect here"),
     Arg("bestpath", bool, False,
-        "Run lattice trigram rescoring after Viterbi (not ported yet)"),
+        "Run lattice trigram rescoring after Viterbi (ps -bestpath)"),
     Arg("bestpathlw", float, 9.5, "Language weight for bestpath rescoring"),
-    Arg("latbeam", float, 0.0, "Lattice link beam for bestpath rescoring"),
+    Arg("latbeam", float, 0.0,
+        "Lattice link beam for bestpath rescoring: links off every path "
+        "within this (linear-probability) width of the bigram-approximate "
+        "best path are skipped by the exact trigram DP.  Default 0 = "
+        "fully exact rescoring"),
     Arg("ascale", float, 20.0, "Inverse acoustic scale for lattice posteriors"),
     Arg("prune", bool, True,
         "Apply beam pruning (prune_channels / save_bp threshold semantics)"),
@@ -276,6 +293,7 @@ class NgramSearch(nn.Module):
             else:
                 ent0[k] = self.lw * self.lm.bg_score(
                     self.start_lmwid, int(v.lmwid[k])) + self.log_wip
+        self._ent0, self._fil_pen_np = ent0, fp      # host lattice terms
         entc0 = np.full((g.n_chan,), NEG_INF, np.float32)
         if self._tree:
             # Tree entries carry only the lookahead smear; the exact LM,
@@ -338,8 +356,12 @@ class NgramSearch(nn.Module):
             buf("_lastci", g.lastci)
             buf("_entxs0", xs0)
         # (tapes, lengths, last index) of the most recent batch; the tapes
-        # stay on the device.
+        # stay on the device until a lattice needs them (`_host_tapes`).
+        # `_last`: one utterance's host tapes + its length, for get_lattice.
         self._last_batch: Optional[tuple] = None
+        self._host_tapes: Optional[tuple] = None
+        self._last: Optional[tuple] = None
+        self._lm_arrays: Optional[native.LmArrays] = None  # built at first use
 
     def _buf(self, name: str, a, dtype=None) -> None:
         """Register host array `a` as a buffer on the search's device;
@@ -814,6 +836,30 @@ class NgramSearch(nn.Module):
                 ht, ct)
 
     # ------------------------------------------------------------------
+    def _scan(self, carry, scores: torch.Tensor, t0: int,
+              valid: torch.Tensor, tape):
+        """Frames t0 .. t0+n-1 of the senone scores [B, n, n_sen] (valid
+        [B, n]) through the graph's frame step; writes their tape rows and
+        returns the carry.  The static and tree steps expand a block of
+        frames' senones at a time (the expansion is elementwise, so the
+        block changes no result)."""
+        B, n = scores.shape[0], scores.shape[1]
+        if not self._fast:
+            for k in range(n):
+                carry = self._step_mpx(carry, scores[:, k], t0 + k,
+                                       valid[:, k], tape)
+            return carry
+        g = self.graph
+        step = self._step_tree if self._tree else self._step_static
+        per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
+        KB = max(1, min(self.FRAME_BUCKET, EXPAND_BLOCK_BYTES // per_frame))
+        for k0 in range(0, n, KB):
+            sen = self._expand_block(scores[:, k0: k0 + KB])
+            for k in range(sen.shape[0]):
+                carry = step(carry, sen[k], t0 + k0 + k, valid[:, k0 + k],
+                             tape)
+        return carry
+
     def device_decode(self, feats: torch.Tensor, valid: torch.Tensor):
         """Padded feats [B, Tpad, D] + valid mask [B, Tpad] -> backpointer
         tapes (tw, tsc, tprev, th2, th1 [B, Tpad*E]; trc [B, Tpad*E, Vr]),
@@ -827,22 +873,9 @@ class NgramSearch(nn.Module):
                      for dt in (torch.int32, torch.float32, torch.int32,
                                 torch.int32, torch.int32)) + (
             torch.empty((B, Tpad, E, Vr), dtype=torch.float32, device=dev),)
-        if self._fast:
-            step = self._step_tree if self._tree else self._step_static
-            carry = self._init_static(B, Tpad)
-            per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
-            KB = max(1, min(self.FRAME_BUCKET,
-                            EXPAND_BLOCK_BYTES // per_frame))
-            for t0 in range(0, Tpad, KB):
-                sen = self._expand_block(scores[:, t0: t0 + KB])
-                for k in range(sen.shape[0]):
-                    carry = step(carry, sen[k], t0 + k, valid[:, t0 + k],
-                                 tape)
-        else:
-            hmmc = self._init_hmmc(B)
-            for t in range(Tpad):
-                hmmc = self._step_mpx(hmmc, scores[:, t], t, valid[:, t],
-                                      tape)
+        carry = (self._init_static(B, Tpad) if self._fast
+                 else self._init_hmmc(B))
+        self._scan(carry, scores, 0, valid, tape)
         tw, tsc, tprev, th2, th1, trc = tape
         n = Tpad * E
         return (tw.view(B, n), tsc.view(B, n), tprev.view(B, n),
@@ -934,12 +967,6 @@ class NgramSearch(nn.Module):
         return Hypothesis(words, float(score), segs)
 
     # ------------------------------------------------------------------
-    def _check_bestpath(self, bestpath: Optional[bool]) -> None:
-        bp = bool(self.config["bestpath"]) if bestpath is None else bestpath
-        if bp:
-            raise NotImplementedError(
-                "bestpath lattice rescoring is not ported yet (ROADMAP A11)")
-
     def _pad(self, arrays) -> tuple:
         """List of [T_i, n] -> ([B, Tpad, n] tensor, T [B] tensor, Ts)
         with Tpad a multiple of FRAME_BUCKET (the reference's tape shape)."""
@@ -952,18 +979,25 @@ class NgramSearch(nn.Module):
         return (torch.as_tensor(buf, device=self.device),
                 torch.as_tensor(Ts, dtype=torch.int64, device=self.device), Ts)
 
-    def _run(self, feats: torch.Tensor, T: torch.Tensor, Ts):
+    def _run(self, feats: torch.Tensor, T: torch.Tensor, Ts,
+             bestpath: Optional[bool]) -> List[Hypothesis]:
         valid = (torch.arange(feats.shape[1], device=self.device)[None, :]
                  < T[:, None])
         tapes = self.device_decode(feats, valid)
         chase = self.device_backtrace(tapes, T).cpu().numpy()
+        self._last = None
         self._last_batch = (tapes, Ts, len(Ts) - 1)
-        return [self._hyp_from_chase(c) for c in chase]
+        self._host_tapes = None
+        out = [self._hyp_from_chase(c) for c in chase]
+        bp = bool(self.config["bestpath"]) if bestpath is None else bestpath
+        return self._rescore_batch(out) if bp else out
 
     def decode(self, feats: np.ndarray,
                bestpath: Optional[bool] = None) -> Hypothesis:
-        """feats [T, D] -> best hypothesis (a batch of one).  An empty
-        utterance gives the empty hypothesis with score -inf."""
+        """feats [T, D] -> best hypothesis (a batch of one).  With
+        bestpath, the Viterbi result is rescored over the word lattice at
+        -bestpathlw.  An empty utterance gives the empty hypothesis with
+        score -inf."""
         if int(feats.shape[0]) == 0:
             return Hypothesis([], float("-inf"), [])
         return self.decode_batch([feats], bestpath)[0]
@@ -972,11 +1006,11 @@ class NgramSearch(nn.Module):
     def decode_batch(self, feats_list, bestpath: Optional[bool] = None
                      ) -> List[Hypothesis]:
         """Batched decode: all utterances padded to one frame bucket and
-        decoded together.  Returns one Hypothesis per utterance."""
+        decoded together.  Returns one Hypothesis per utterance, rescored
+        over its lattice when bestpath is on (argument, else -bestpath)."""
         if not feats_list:
             return []
-        self._check_bestpath(bestpath)
-        return self._run(*self._pad(feats_list))
+        return self._run(*self._pad(feats_list), bestpath)
 
     @torch.inference_mode()
     def decode_batch_cep(self, cep_list, fp, bestpath: Optional[bool] = None
@@ -985,6 +1019,285 @@ class NgramSearch(nn.Module):
         decode -> backtrace, all on the device."""
         if not cep_list:
             return []
-        self._check_bestpath(bestpath)
         c, T, Ts = self._pad(cep_list)
-        return self._run(fp._padded_kernel(c, T, True), T, Ts)
+        return self._run(fp._padded_kernel(c, T, True), T, Ts, bestpath)
+
+    # ------------------------------------------------------------------
+    # Streaming decode: the carry and the tape stay on the device between
+    # pushes, so audio is decoded as it arrives, with partial hypotheses
+    # at any point (ps_process_raw's incremental loop, pocketsphinx.c:
+    # 699-719, and the gst plugin's partial results).
+    CHUNK = 50
+
+    def _new_tape(self, frames: int) -> tuple:
+        """A stream's tape for `frames` frames ([1, frames, E] rows; trc
+        [1, frames, E, Vr]), filled as unwritten slots read: no word."""
+        E, Vr, dev = self.E, self.graph.n_rcvar, self.device
+        fills = ((torch.int32, -1), (torch.float32, NEG_INF),
+                 (torch.int32, -1), (torch.int32, -1), (torch.int32, -1))
+        return tuple(torch.full((1, frames, E), v, dtype=dt, device=dev)
+                     for dt, v in fills) + (
+            torch.full((1, frames, E, Vr), NEG_INF, dtype=torch.float32,
+                       device=dev),)
+
+    @torch.inference_mode()
+    def stream_start(self, max_frames: int = 3000) -> dict:
+        """Begin a streaming utterance; returns its state (the carry and
+        the tape on the device).  `max_frames` sizes the first tape; it
+        doubles when the audio runs past it (acmod_set_grow semantics)."""
+        carry = (self._init_static(1, max_frames) if self._fast
+                 else self._init_hmmc(1))
+        return {"carry": carry, "tape": self._new_tape(max_frames), "t": 0,
+                "max_frames": max_frames,
+                "pending": np.zeros((0, 0), np.float32)}
+
+    def _ensure_tape(self, state: dict, need_frames: int) -> None:
+        """Double the tape, and the static and tree steps' per-frame
+        side-tables (histories [1, F*E, 2]; the tree's entry corrections
+        [1, F*R]) with it, until `need_frames` more frames fit."""
+        while state["t"] + need_frames > state["max_frames"]:
+            F = state["max_frames"]
+            state["tape"] = tuple(torch.cat([a, b], 1) for a, b in zip(
+                state["tape"], self._new_tape(F)))
+            if self._fast:
+                alpha, hist, ht, *ct = state["carry"]
+                ht = torch.cat([ht, torch.full_like(ht, -1)], 1)
+                ct = [torch.cat([c, torch.zeros_like(c)], 1) for c in ct]
+                state["carry"] = (alpha, hist, ht, *ct)
+            state["max_frames"] = 2 * F
+
+    def _stream_chunk(self, state: dict, block: np.ndarray, take: int
+                      ) -> None:
+        """Score CHUNK frames [CHUNK, D] of features (the first `take`
+        real, the rest padding that leaves the carry as it was) and run
+        them through the frame step.  The tape grows to hold the whole
+        chunk, padded rows included, which the step writes."""
+        self._ensure_tape(state, self.CHUNK)
+        x = torch.as_tensor(block[None]).to(self.device)
+        scores = self.scorer.score(x)                             # [1, CHUNK, S]
+        valid = (torch.arange(self.CHUNK, device=self.device) < take)[None]
+        state["carry"] = self._scan(state["carry"], scores, state["t"],
+                                    valid, state["tape"])
+        state["t"] += take
+
+    @torch.inference_mode()
+    def stream_push(self, state: dict, feats: np.ndarray) -> dict:
+        """Feed feature frames; whole CHUNKs are decoded on the device, the
+        remainder is buffered until the next push or stream_end."""
+        feats = np.asarray(feats, np.float32)
+        pend = state["pending"]
+        buf = feats if pend.size == 0 else np.concatenate([pend, feats])
+        k = buf.shape[0] // self.CHUNK
+        for i in range(k):
+            self._stream_chunk(state, buf[i * self.CHUNK: (i + 1) * self.CHUNK],
+                               self.CHUNK)
+        state["pending"] = buf[k * self.CHUNK:]
+        return state
+
+    def _stream_flush(self, state: dict) -> int:
+        """Decode the buffered remainder, padded by repeating its last
+        frame and masked.  Returns the number of real frames decoded."""
+        pend = state["pending"]
+        while pend.shape[0]:
+            take = min(pend.shape[0], self.CHUNK)
+            blk = np.repeat(pend[take - 1: take], self.CHUNK, axis=0)
+            blk[:take] = pend[:take]
+            self._stream_chunk(state, blk, take)
+            pend = pend[take:]
+        state["pending"] = np.zeros((0, 0), np.float32)
+        return state["t"]
+
+    def _stream_host_tape(self, state: dict) -> tuple:
+        """The first t frames of the stream's tape on the host, flat
+        [t*E(, Vr)] as the readout indexes it: one copy per array, of the
+        decoded frames only."""
+        t = state["t"]
+        return tuple(a[0, :t].cpu().numpy().reshape(
+            (t * self.E,) + tuple(a.shape[3:])) for a in state["tape"])
+
+    @torch.inference_mode()
+    def stream_partial(self, state: dict) -> Hypothesis:
+        """Best hypothesis so far (partial result); does not disturb the
+        stream.  The buffered remainder is not included."""
+        if state["t"] == 0:
+            return Hypothesis([], float("-inf"), [])
+        return self._backtrace(*self._stream_host_tape(state), state["t"])
+
+    @torch.inference_mode()
+    def stream_end(self, state: dict) -> Hypothesis:
+        """Finish the stream: flush the remainder and return the final
+        hypothesis; the lattice is then available from get_lattice()."""
+        T = self._stream_flush(state)
+        self._last = self._stream_host_tape(state) + (T,)
+        return self._backtrace(*self._last)
+
+    # ------------------------------------------------------------------
+    # The host results layer: lattices and bestpath rescoring.
+    def _latbeam_ln(self) -> float:
+        """latbeam (linear prob) -> natural-log beam width for the native
+        link pruner (0 = exact)."""
+        lb = float(self.config["latbeam"])
+        return -math.log(lb) if lb > 0.0 else 0.0
+
+    def _rescore_batch(self, hyps: List[Hypothesis]) -> List[Hypothesis]:
+        """Bestpath-rescore every utterance of the most recent batch: the
+        lattice built from its host tape, then the native trigram DP, with
+        utterances rescored in parallel threads (the native call releases
+        the GIL).  An utterance keeps its Viterbi result where the lattice
+        gives no path."""
+        htapes = self._batch_host_tapes()
+        Ts = self._last_batch[1]
+        B = len(Ts)
+        bplw = float(self.config["bestpathlw"])
+        bw = self._latbeam_ln()
+        lats = [self._lattice_from_tape(tuple(a[i] for a in htapes)
+                                        + (Ts[i],))
+                if hyps[i].segments else None for i in range(B)]
+
+        def _one(i):
+            if lats[i] is None:
+                return hyps[i]
+            h2 = lats[i].bestpath(lw=bplw, start_lmwid=self.start_lmwid,
+                                  prune_beam=bw)
+            return h2 if h2.segments else hyps[i]
+
+        with ThreadPoolExecutor(max_workers=min(8, max(B, 1))) as ex:
+            return list(ex.map(_one, range(B)))
+
+    def _batch_host_tapes(self) -> tuple:
+        """The last batch's tapes on the host, [B, Tpad*E(, Vr)]: one copy
+        per array, made once per batch."""
+        if self._host_tapes is None:
+            self._host_tapes = tuple(a.cpu().numpy()
+                                     for a in self._last_batch[0])
+        return self._host_tapes
+
+    def select_utt(self, i: int) -> None:
+        """Point get_lattice at utterance `i` of the most recent batch."""
+        htapes = self._batch_host_tapes()
+        Ts = self._last_batch[1]
+        self._last = tuple(a[i] for a in htapes) + (Ts[i],)
+
+    def _slot_rc_score(self, trc_row: np.ndarray, k: int, ci: int) -> float:
+        """Exit score of word k's rc variant serving CI phone ci."""
+        return float(trc_row[int(self.graph.rssid[k, ci])])
+
+    def _tg_batch(self, h1: np.ndarray, h2: np.ndarray,
+                  w: np.ndarray) -> np.ndarray:
+        """Batched trigram scores (the native lm3g core when built)."""
+        if self._lm_arrays is None:
+            self._lm_arrays = native.LmArrays(self.lm)
+        out = native.tg_score_batch(self._lm_arrays, h1, h2, w)
+        if out is not None:
+            return out.astype(np.float64)
+        return np.asarray([self.lm.tg_score(int(a), int(b), int(c))
+                           for a, b, c in zip(h1, h2, w)], np.float64)
+
+    def _lattice_from_tape(self, last) -> Lattice:
+        """Lattice construction from one utterance's host tape arrays
+        (tw, tsc, tprev, th2, th1 [n_slots]; trc [n_slots, Vr]; T): every
+        live slot is a node.  The rc variant of a predecessor is read per
+        slot, rssid[pk, firstci[k]], with no [W, W] table."""
+        tw, tsc, tprev, th2, th1, trc = (np.asarray(a) for a in last[:6])
+        T = last[6]
+        g, v, E = self.graph, self.vocab, self.E
+        n_slots = T * E
+        slots = np.nonzero(tw[:n_slots] >= 0)[0]
+        k = tw[slots].astype(np.int64)
+        t = slots // E
+        prev = tprev[slots]
+        has_prev = prev >= 0
+        pidx = np.maximum(prev, 0)
+        sf = np.where(has_prev, pidx // E + 1, 0)
+        # Entry score = predecessor exit (rc variant serving this word's
+        # first CI phone) + LM/filler term: the score the decoder entered
+        # this instance with (word_transition semantics).
+        pk = tw[pidx].astype(np.int64)
+        rcv = g.rssid[pk, g.firstci[k]].astype(np.int64)
+        base = trc[pidx, rcv]
+        base = np.where(base <= float(NEG_INF) * 0.5, tsc[pidx], base)
+        fil = v.is_filler[k]
+        lmterm = np.where(fil, self._fil_pen_np[k], 0.0).astype(np.float64)
+        nz = has_prev & ~fil
+        if nz.any():
+            lmterm[nz] = (self.lw * self._tg_batch(
+                th1[pidx[nz]], th2[pidx[nz]], v.lmwid[k[nz]])
+                + self.log_wip)
+        entry = np.where(has_prev, base + lmterm, self._ent0[k])
+        # Per-instance rc readout decompressed to per-CI columns.
+        rc_all = np.take_along_axis(
+            trc[slots], g.rssid[k].astype(np.int64), axis=1)
+        vit = tsc[slots]
+        fp = self._fil_pen_np[k]
+        lmw = v.lmwid[k]
+        fin = v.is_finish[k]
+        nodes = [
+            LatNode(id=i, word=v.word_str[ki], kidx=int(ki),
+                    lmwid=int(lw_), is_filler=bool(fi), fil_pen=float(fpi),
+                    sf=int(sfi), ef=int(ti), vit_score=float(vi),
+                    rc_score=rc_all[i], entry_score=float(en),
+                    is_finish=bool(fni))
+            for i, (ki, lw_, fi, fpi, sfi, ti, vi, en, fni) in enumerate(
+                zip(k, lmw, fil, fp, sf, t, vit, entry, fin))
+        ]
+        return Lattice(nodes, g.firstci, g.lastci, self.lm, self.lw,
+                       self.log_wip, self.sil_ci, self.finish_lmwid, T)
+
+    def get_lattice(self) -> Lattice:
+        """Word lattice for the most recent utterance (ps_get_lattice): the
+        stream just ended, or the last utterance of the last batch (see
+        `select_utt`)."""
+        if self._last is None:
+            if self._last_batch is None:
+                raise RuntimeError("no utterance decoded yet")
+            self.select_utt(self._last_batch[2])
+        return self._lattice_from_tape(self._last)
+
+    # ------------------------------------------------------------------
+    # The host readout (partial and final hypotheses of a stream).
+    def _final_slot(self, tw, tsc, th2, th1, trc, T):
+        """Best utterance-final tape slot at the last frame with exits,
+        scored with silence right context + P(</s> | h)
+        (ngram_search_finish semantics)."""
+        E, v = self.E, self.vocab
+        for t in range(T - 1, -1, -1):
+            sl = slice(t * E, t * E + E)
+            ws = tw[sl]
+            if not (ws >= 0).any():
+                continue
+            best, best_s = -1, -np.inf
+            for e in range(E):
+                if ws[e] < 0:
+                    continue
+                s = self._slot_rc_score(trc[sl][e], int(ws[e]), self.sil_ci)
+                if not np.isfinite(s) or s <= float(NEG_INF) * 0.5:
+                    s = tsc[sl][e]
+                if not v.is_finish[ws[e]]:
+                    s += self.lw * self.lm.tg_score(
+                        int(th1[sl][e]), int(th2[sl][e]), self.finish_lmwid)
+                if s > best_s:
+                    best, best_s = t * E + e, float(s)
+            if best >= 0:
+                return best, best_s
+        return -1, float("-inf")
+
+    def _backtrace(self, tw, tsc, tprev, th2, th1, trc, T) -> Hypothesis:
+        slot, score = self._final_slot(tw, tsc, th2, th1, trc, T)
+        if slot < 0:
+            return Hypothesis([], float("-inf"), [])
+        v, E = self.vocab, self.E
+        segs: List[Segment] = []
+        while slot >= 0:
+            k = int(tw[slot])
+            t = slot // E
+            prev = int(tprev[slot])
+            start = prev // E + 1 if prev >= 0 else 0
+            segs.append(Segment(v.word_str[k], start, t, float(tsc[slot])))
+            slot = prev
+        segs.reverse()
+        words = []
+        for s in segs:
+            wid = self.dict.wordid(s.word)
+            if wid < 0 or not self.dict.is_filler(wid):
+                words.append(self.dict.base_str(wid) if wid >= 0 else s.word)
+        return Hypothesis(words, score, segs)

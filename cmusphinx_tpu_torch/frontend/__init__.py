@@ -1,2 +1,2 @@
-from .fe import FE_ARGS, Frontend
+from .fe import FE_ARGS, Frontend, FrontendStream
 from .feat import FEAT_ARGS, FeatPipeline

@@ -1,6 +1,7 @@
-"""Signal frontend: waveform -> MFCC, batched (port of
+"""Signal frontend: waveform -> MFCC, batched and streaming (port of
 `cmusphinx_tpu/frontend/fe.py`: `FE_ARGS`, the VTLN warps, `build_melbank`,
-`build_dct`, `build_idct`, `build_window` and the batch `Frontend`).
+`build_dct`, `build_idct`, `build_window`, the batch `Frontend` and
+`FrontendStream`).
 
 The reference module imports JAX, so the host-side table builders are
 copied here unchanged (numpy, float64); `Frontend` runs the per-frame math
@@ -13,9 +14,9 @@ log with the reference's -10 floor for empty filters, then `logspec`,
 Frame semantics (fe_interface.c:336 `fe_process_frames` + :507
 `fe_end_utt`): frame k covers samples [k*shift, k*shift + frame_size); an
 utterance of N samples yields 1 + (N - frame_size)//shift full frames plus
-one final zero-padded tail frame.
-
-The streaming `FrontendStream` is not ported yet (ROADMAP A11).
+one final zero-padded tail frame.  `FrontendStream` carries the sample
+remainder and the pre-emphasis prior across calls, so chunked audio gives
+the frames of one `process` call on the whole of it.
 """
 
 from __future__ import annotations
@@ -336,7 +337,11 @@ class Frontend(nn.Module):
             y = nn.functional.pad(y, (0, padded_len - nsamps))
         starts = torch.arange(nframes, device=x.device) * self.frame_shift
         idx = starts[:, None] + torch.arange(self.frame_size, device=x.device)
-        frames = y[:, idx]                                  # [B, T, frame_size]
+        return self._frames_to_cep(y[:, idx])
+
+    def _frames_to_cep(self, frames: torch.Tensor) -> torch.Tensor:
+        """Pre-emphasized frames [..., T, frame_size] -> [..., T,
+        output_dim]: DC removal, window, power spectrum, mel, log, DCT."""
         if self.remove_dc:
             frames = frames - frames.mean(-1, keepdim=True)
         frames = frames * self.window
@@ -352,3 +357,64 @@ class Frontend(nn.Module):
         if self.lifter is not None:
             cep = cep * self.lifter
         return cep
+
+    # Streaming (live-mode) API -----------------------------------------
+    def start_utt(self) -> "FrontendStream":
+        return FrontendStream(self)
+
+
+class FrontendStream:
+    """Streaming wrapper with overflow-sample carry, mirroring
+    fe_process_frames / fe_end_utt semantics for live audio (port of
+    `cmusphinx_tpu/frontend/fe.py` `FrontendStream`).
+
+    State: `_carry` holds all samples from the next frame *start* onward
+    (overlap + residual, always < frame_size), `_prior` the sample just
+    before it (for pre-emphasis continuity across calls).  The framing runs
+    on the host; the per-frame math on the frontend's device, as
+    `Frontend.process` does it.
+    """
+
+    def __init__(self, fe: Frontend):
+        self.fe = fe
+        self._carry = np.zeros(0, dtype=np.float32)
+        self._prior = np.float32(0.0)
+
+    def process(self, samples: np.ndarray) -> np.ndarray:
+        fe = self.fe
+        x = np.concatenate([self._carry, np.asarray(samples, dtype=np.float32)])
+        if len(x) < fe.frame_size:
+            self._carry = x
+            return np.zeros((0, fe.output_dim), dtype=np.float32)
+        n = 1 + (len(x) - fe.frame_size) // fe.frame_shift
+        cep = self._run(x[: (n - 1) * fe.frame_shift + fe.frame_size], n)
+        nxt = n * fe.frame_shift
+        self._prior = x[nxt - 1]
+        self._carry = x[nxt:]
+        return cep
+
+    def _run(self, x: np.ndarray, n: int) -> np.ndarray:
+        fe = self.fe
+        if fe.alpha != 0.0:
+            prev = np.concatenate([[self._prior], x[:-1]]).astype(np.float32)
+            y = x - np.float32(fe.alpha) * prev
+        else:
+            y = x.astype(np.float32)
+        need = (n - 1) * fe.frame_shift + fe.frame_size
+        if len(y) < need:  # zero-pad (end_utt tail frame)
+            y = np.concatenate([y, np.zeros(need - len(y), dtype=np.float32)])
+        starts = np.arange(n) * fe.frame_shift
+        idx = starts[:, None] + np.arange(fe.frame_size)[None, :]
+        with torch.inference_mode():
+            frames = torch.as_tensor(y[idx]).to(fe.device)
+            return fe._frames_to_cep(frames).cpu().numpy()
+
+    def end_utt(self) -> np.ndarray:
+        fe = self.fe
+        if len(self._carry) == 0:
+            out = np.zeros((0, fe.output_dim), dtype=np.float32)
+        else:
+            out = self._run(self._carry, 1)
+        self._carry = np.zeros(0, dtype=np.float32)
+        self._prior = np.float32(0.0)
+        return out

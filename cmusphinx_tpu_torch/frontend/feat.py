@@ -2,7 +2,8 @@
 
 Port of `cmusphinx_tpu/frontend/feat.py` (`FEAT_ARGS`, the feature types,
 `stream_slices`, `_padded_kernel`, `_dynamic`, `compute`,
-`compute_batch`).  Utterances arrive
+`compute_batch`, and the live path `normalize_live` / `compute_live`).
+In the batch path utterances arrive
 zero-padded to a common length with their true lengths, and the batch is
 an explicit leading dimension.  Matches feat_s2mfc2feat_block_utt with
 beginutt = endutt = 1: replicate-pad by the window first, then CMN over the
@@ -20,7 +21,12 @@ Feature layouts (GMMs are trained against these exact orders):
 Deltas: d[t] = c[t+2] - c[t-2]; dd[t] = (c[t+3]-c[t-1]) - (c[t+1]-c[t-3]);
 long d[t] = c[t+4] - c[t-4].
 
-The live path (prior CMN, emax AGC, streaming) is not ported yet.
+The live path (streaming) normalizes each block of cepstra on arrival
+with prior-mode CMN (cmn_prior.c: subtract the running mean, refresh it
+past 800 frames and at the end of an utterance) and AGC on c0 (emax: the
+mean of past utterances' maxima, halved in weight at 8 utterances).  Its
+state carries across utterances.  It runs on the host in numpy, as the
+reference's does, and so gives the reference's values exactly.
 """
 
 from __future__ import annotations
@@ -104,6 +110,17 @@ class FeatPipeline(nn.Module):
         self.subvecs = parse_subvecs(sv) if sv else None
         if self.subvecs is not None:
             self.stream_lens = [len(s) for s in self.subvecs]
+
+        # Live-mode CMN state.  Prior-mode CMN primes both the sum and the
+        # frame count with the init mean's virtual window (cmn_prior.c:
+        # sum = mean * CMN_WIN; nframe = CMN_WIN).
+        self._cmn_mean = cmn_mean.copy()
+        self._cmn_sum = self._cmn_mean * 500.0
+        self._cmn_nframe = 500
+        self._agc_max = 5.0 if self.cmn_type != "none" else 10.0
+        self._agc_obs_max = -np.inf
+        self._agc_obs_sum = 0.0
+        self._agc_obs_utt = 0
 
     def _setup_type(self) -> None:
         t, n = self.feat_type, self.cepsize
@@ -222,6 +239,59 @@ class FeatPipeline(nn.Module):
             return torch.cat([cep[..., 1:], d[..., 1:], ld[..., 1:], pow_,
                               dd[..., 1:]], -1)
         raise ValueError(self.feat_type)
+
+    def dynamic_live(self, cep: np.ndarray) -> np.ndarray:
+        """An unpadded block of normalized cepstra [T, n] -> features
+        [T, out_dim] on the host: replicate-pad by the window here, deltas,
+        LDA (the reference's `_dynamic(cep, padded=False)` and its numpy
+        LDA product)."""
+        cep = np.asarray(cep, np.float32)
+        if cep.shape[0] == 0:
+            return np.zeros((0, self.out_dim), np.float32)
+        w = self.window
+        pad = np.concatenate([np.repeat(cep[:1], w, 0), cep,
+                              np.repeat(cep[-1:], w, 0)])
+        with torch.inference_mode():
+            feats = self._dynamic(torch.as_tensor(pad)[None])[0].numpy()
+        if self.lda is not None:
+            feats = feats @ self.lda.cpu().numpy().T
+        return feats
+
+    def compute_live(self, cep: np.ndarray, beginutt: bool,
+                     endutt: bool) -> np.ndarray:
+        """Live/streaming path with prior CMN and emax AGC (stateful)."""
+        return self.dynamic_live(self.normalize_live(cep, endutt))
+
+    def normalize_live(self, cep: np.ndarray, endutt: bool) -> np.ndarray:
+        """Stateful per-chunk normalization for streaming: prior-mode CMN
+        (cmn_prior.c: subtract the running mean, refresh it past CMN_WIN_HWM
+        and at utterance end) and AGC on c0.  Shared by compute_live and the
+        incremental Decoder streaming path so both see identical CMN/AGC
+        state evolution."""
+        cep = np.asarray(cep, np.float32).copy()
+        # cmn_prior (cmn_prior.c): accumulate raw cepstra, subtract current mean.
+        if self.cmn_type != "none":
+            self._cmn_sum += cep.sum(axis=0)
+            self._cmn_nframe += len(cep)
+            cep -= self._cmn_mean
+            if self._cmn_nframe > 800:  # CMN_WIN_HWM
+                self._cmn_mean = (self._cmn_sum / self._cmn_nframe).astype(np.float32)
+                self._cmn_sum *= 500.0 / self._cmn_nframe
+                self._cmn_nframe = 500
+            elif endutt and self._cmn_nframe > 0:
+                self._cmn_mean = (self._cmn_sum / self._cmn_nframe).astype(np.float32)
+        if self.agc_type in ("emax", "max", "noise") and len(cep):
+            self._agc_obs_max = max(self._agc_obs_max, float(cep[:, 0].max()))
+            cep[:, 0] -= self._agc_max
+            if endutt and np.isfinite(self._agc_obs_max):
+                self._agc_obs_sum += self._agc_obs_max
+                self._agc_obs_utt += 1
+                self._agc_max = self._agc_obs_sum / self._agc_obs_utt
+                if self._agc_obs_utt == 8:
+                    self._agc_obs_sum /= 2
+                    self._agc_obs_utt = 4
+                self._agc_obs_max = -np.inf
+        return cep
 
     @torch.inference_mode()
     def compute(self, cep: np.ndarray, batch_cmn: bool = True) -> np.ndarray:

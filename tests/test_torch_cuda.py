@@ -1,7 +1,8 @@
 """The port on the GPU: kernel K1 against its plain version, a
 one-utterance decode through it, the other scorers, the frontend, the
-Decoder, the LM backends and the large-vocabulary searches on the card
-against their CPU runs.  Skips where there is no CUDA device.
+Decoder, the LM backends, the large-vocabulary searches, the streaming
+decode and the lattice results on the card against their CPU runs.
+Skips where there is no CUDA device.
 
 Tolerances against the CPU run: `PsParityScorer`'s epilogue bit-exact on
 the same int32 densities, and the whole scorer bit-exact on an
@@ -366,3 +367,83 @@ def test_large_vocab_decode_on_card_matches_cpu(cuda, lexmode):
         else:
             np.testing.assert_array_equal(a, b)
     assert [h.words for h in gh] == [h.words for h in ch] == fx.transcripts
+
+
+# ---- streaming and the lattice results on the card ------------------------
+
+@pytest.mark.parametrize("lexmode", ["flat", "tree"])
+def test_stream_on_card_matches_batch(cuda, lexmode):
+    """A stream (37-frame pushes, a tape that grows from 100 frames) on the
+    card against the card's batch decode of the same features and against
+    the CPU's stream: integer tapes equal, float tapes within rtol 1e-5,
+    K1 launched once a chunk."""
+    size = fixture.SMALL if lexmode == "flat" else fixture.MEDIUM
+    fx = fixture.build(0, size=size)
+    feats = FeatPipeline(fx.feat_config(), device="cpu").compute(fx.ceps[1])
+    T = feats.shape[0]
+    out = {}
+    for dev in (cuda, "cpu"):
+        s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                        ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
+                        device=dev, lexmode=lexmode)
+        before = fused_mixture_scores.launches
+        st = s.stream_start(max_frames=100)
+        for i in range(0, T, 37):
+            s.stream_push(st, feats[i: i + 37])
+            s.stream_partial(st)
+        hyp = s.stream_end(st)
+        launched = fused_mixture_scores.launches - before
+        assert st["max_frames"] > 100
+        stream = [np.asarray(a) for a in s._last[:6]]
+        batch = s.decode(feats)
+        E = s.E
+        btapes = [a[0, : T * E].cpu().numpy() for a in s._last_batch[0]]
+        out[str(dev)] = (hyp, stream, launched)
+        for a, b in zip(stream, btapes):
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+            else:
+                np.testing.assert_array_equal(a, b)
+        assert hyp.words == batch.words == fx.transcripts[1]
+    (gh, gt, gl), (ch, ct, cl) = out[str(cuda)], out["cpu"]
+    assert gl >= -(-T // 50) and cl == 0
+    for a, b in zip(gt, ct):
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert gh.words == ch.words
+
+
+def test_native_runtime_loads(cuda):
+    from cmusphinx_tpu_torch.utils import native
+    assert native.loaded() and native.library_path().exists()
+
+
+def test_bestpath_on_card_tapes_matches_cpu(cuda):
+    """Bestpath, N-best and posteriors from the card's tapes against the
+    CPU's on the SMALL fixture with wide beams (lattices of 100+ nodes)."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    wide = {"beam": 1e-120, "wbeam": 1e-100, "lw": 2.0}
+    res = []
+    for dev in (cuda, "cpu"):
+        s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                        ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
+                        device=dev, **wide)
+        fp = FeatPipeline(fx.feat_config(), device=dev)
+        hyps = s.decode_batch_cep(fx.ceps, fp, bestpath=True)
+        lat = s.get_lattice()
+        res.append((hyps, lat, lat.nbest(10, start_lmwid=s.start_lmwid),
+                    lat.posterior(0.05)))
+    (gh, gl, gn, gp), (ch, cl, cn, cp) = res
+    for a, b in zip(gh, ch, strict=True):
+        assert a.words == b.words
+        assert [(x.start_frame, x.end_frame) for x in a.segments] == \
+            [(x.start_frame, x.end_frame) for x in b.segments]
+        assert a.score == pytest.approx(b.score, rel=1e-5)
+    assert [(n.word, n.sf, n.ef) for n in gl.nodes] == \
+        [(n.word, n.sf, n.ef) for n in cl.nodes]
+    assert len(gl.nodes) > 100
+    assert [h.words for h in gn] == [h.words for h in cn]
+    m = np.isfinite(cp)
+    np.testing.assert_allclose(gp[m], cp[m], rtol=0, atol=1e-4)

@@ -239,6 +239,11 @@ def test_no_port_file_imports_jax_or_the_reference():
     files = sorted((ROOT / "cmusphinx_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"cmusphinx_tpu_torch/{m}.py" for m in (
+        "decode/lattice", "frontend/source", "frontend/vad", "pipeline",
+        "utils/log", "utils/profile", "utils/native", "cli/batch",
+        "cli/continuous")} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "cmusphinx_tpu")]

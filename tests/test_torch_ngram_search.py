@@ -198,8 +198,10 @@ def test_unported_options_raise(fx, port):
     with pytest.raises(NotImplementedError, match="A12"):
         NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device="cpu",
                     pl_window=5)
-    with pytest.raises(NotImplementedError, match="A11"):
-        s.decode_batch_cep(fx.ceps, fp, bestpath=True)
+    # Bestpath rescoring is ported (test_torch_lattice holds it to the
+    # reference).
+    assert [h.words for h in s.decode_batch_cep(fx.ceps, fp, bestpath=True)
+            ] == fx.transcripts
 
 
 def test_decode_empty_utterance_matches_reference(decoded, port):

@@ -82,6 +82,52 @@ def test_decoder_runs_with_jax_blocked():
         in r.stdout
 
 
+_STREAM_WITHOUT_JAX = r"""
+import sys, tempfile
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["cmusphinx_tpu"] = None  # and any of the reference package
+import numpy as np
+from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch.api import Decoder
+from cmusphinx_tpu_torch.cli import batch, continuous
+from cmusphinx_tpu_torch.pipeline import SpeechPipeline
+from cmusphinx_tpu_torch.utils import native
+from cmusphinx_tpu_torch.utils.bio import write_mfc
+fx = fixture.build(0, size=fixture.SMALL)
+ok = []
+with tempfile.TemporaryDirectory() as tmp:
+    kw = fixture.write_model_dir(fx, tmp)
+    d = Decoder(device="cpu", bestpath=True, **kw)
+    d.start_utt(streaming=True)
+    for part in np.array_split(fx.ceps[0], 5):
+        d.process_cep(part)
+        d.hyp()
+    ok.append(len(d.end_utt().words) > 0)
+    ok.append(len(d.nbest(3)) >= 1 and 0.0 < d.get_prob() <= 1.0)
+    write_mfc(tmp + "/u.mfc", fx.ceps[1])
+    open(tmp + "/c.ctl", "w").write("u\n")
+    ok.append(batch.main(["-hmm", kw["hmm"], "-lm", kw["lm"], "-dict",
+                          kw["dict"], "-ctl", tmp + "/c.ctl", "-cepdir", tmp,
+                          "-outlatdir", tmp, "-platform", "cpu"]) == 0)
+    fixture.synthetic_pcm(0, 1.0).tofile(tmp + "/s.raw")
+    ok.append(continuous.main(["-hmm", kw["hmm"], "-lm", kw["lm"], "-dict",
+                               kw["dict"], "-infile", tmp + "/s.raw",
+                               "-platform", "cpu"]) == 0)
+    ok.append(native.loaded())
+assert not any(m.split(".")[0] in ("jax", "cmusphinx_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+print("STREAM", ok)
+"""
+
+
+def test_stream_results_and_clis_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _STREAM_WITHOUT_JAX], env=env,
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "STREAM [True, True, True, True, True]" in r.stdout
+
+
 def test_no_source_file_imports_jax():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     files = sorted((ROOT / "cmusphinx_tpu_torch").rglob("*.py"))
