@@ -10,14 +10,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card, its power limit, its SMs and highest SM clock, torch
    / CUDA / nvcc versions.
-2. build: compile kernel K1 (csrc/fused_gmm.cu) for sm_90a into build/.
+2. build: compile kernel K1 (csrc/fused_gmm.cu, its units in parallel) for
+   sm_90a into build/, and beside it the C++ host runtime.
 3. K1 against its plain PyTorch version and against float64 at S=5150,
    K=32, D=39 in each -gmmprec mode, with magnitude-scaled bounds (see
    `SAME_MODE`, `MODE_BOUND`), on a unit-scale model at T=2000 and at the
    main path's T=9,600 and on a floored-variance model at T=2000; at both
    unit shapes the times (CUDA events) of K1, of its plain version and of
    the cuBLAS route (`library_route`), and K1's bound (`k1_bound`).  The
-   same at D=64, K1's widest depth (`fused_gmm.MAX_D`), T=2000.
+   same at D=64, the widest depth of K1's one-instantiation-a-depth path,
+   T=2000.
 4. the slice: the seeded hub4-class fixture (cmusphinx_tpu_torch.fixture,
    16 utterances) through NgramSearch.decode_batch_cep with K1, its launch
    count, hypotheses against the plain scorer's on the card, WER and xRT.
@@ -38,25 +40,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    decode_cep_file equal to the same Decoder's decode_batch_cep, K1
    launched by the continuous model, and one decode_raw of seeded 16-bit
    PCM whose cepstra from the card's Frontend match the CPU Frontend's.
-
 8. large_vocab_tree: the LARGE continuous fixture at 20,000 words
    (fixture.LARGE, 16 utterances) through decode_batch_cep under `auto`,
    which must pick the prefix-tree lexicon, its exits scored by the hashed
-   LM backend and its senones by K1: channels, K1's launch count, WER, xRT
-   (median of 5 passes), peak memory, identical hypotheses in every pass,
-   and the counted batch held against the host CPU (`hold_against_cpu`):
+   LM backend and its senones by K1: channels, K1's launch count (once),
+   WER, xRT (median of 5 passes), peak memory, identical hypotheses in
+   every pass, and the counted batch held against the host CPU (`Holds`):
    utterance 0 decoded end to end there, and the search alone on the
-   card's senone scores, with integer tape values of the valid frames
-   equal, float values within rtol 1e-5, words and segments equal.
+   card's senone scores for utterance 0, with integer tape values of the
+   valid frames equal, float values within rtol 1e-5, words and segments
+   equal.
 9. large_vocab_static: the LARGE semi-continuous fixture cut to 5,000 words
    with PsParityScorer under `auto`, which must pick the flat
    composite-context graph (the static-senone step) with `score_rows`
-   entries; the same numbers, and the same CPU hold, its search part over
-   all 16 utterances of the batch.
-
-Phases 10-14 run beside the phases whose state they reuse: 10
-after 3, 11 and 14 after 4, 13 after 7, 12 after 8.
-
+   entries; the same numbers, and the same CPU hold over all 16
+   utterances of the batch.
 10. k1 at the stream's shape: phase 3's checks and times at T=50 (one
    50-frame chunk of a stream).
 11. stream: four utterances of the continuous fixture (the batch features
@@ -75,10 +73,42 @@ after 3, 11 and 14 after 4, 13 after 7, 12 after 8.
    cepstra in 25-frame pieces and PCM in 0.25-s pieces, a partial after
    each; final hypotheses equal to the CPU Decoder's on the same inputs;
    nbest(10) and get_prob after each.
-14. lattice: for each utterance of phase 4's batch, get_lattice (node
-   count, ms to build), bestpath by the native runtime (which must load)
-   against the pure-Python bestpath, nbest(10) (ms to rescore); then
-   decode_batch_cep(bestpath=True): its wall time and WER.
+14. lattice: phase 4's batch decoded again with wide beams (the CPU
+   tests' beams, for lattices of 100+ nodes), and for each utterance
+   get_lattice (node count, ms to build), bestpath by the native runtime
+   (which must load) against the pure-Python bestpath, nbest(10) (ms to
+   rescore); then decode_batch_cep(bestpath=True): its wall time and WER.
+15. k1_wide: phase 3 at D=78 and D=150 (K1's depth loop, its geometry
+   from fused_gmm.plan), T=2000, unit (timed, with bound and cuBLAS route)
+   and floored models, in each mode; then a continuous model over 26
+   cepstra (D=78) written as a model directory and decoded by
+   Decoder(device="cuda"): K1 launched once an utterance, WER, utterance
+   0 equal to the CPU Decoder's.
+16. grammar: Decoder(hmm=, jsgf=) and (hmm=, fsg=) on the continuous
+   fixture's model directory with its grammar (fixture.grammar_jsgf /
+   grammar_fsg): 16 utterances through decode_cep_file, counted (K1 once an
+   utterance), ms an utterance on the host clock and in CUDA events, xRT,
+   WER; the last utterance's lattice (bestpath, nbest(5)); utterance 0
+   through the FSG stream in 50-frame pushes (K1 once a chunk), its final
+   equal to the batch's; held against the CPU (`Holds`): utterance 0 end
+   to end, and all 16 utterances through the CPU grammar search fed the
+   card's senone scores (the counted decodes' exit tapes, integers equal,
+   floats within rtol 1e-5; hypotheses equal).
+17. align_allphone: Decoder.align of 4 utterances with their transcripts
+   (states and segments equal to the CPU's, K1 launched once each), and an
+   -allphone uniform decode against the CPU's (K1 once).
+18. ngram_options: pl_window=5 on the continuous slice (the batch counted,
+   K1 once, and all 16 utterances held against the CPU search on its
+   senone scores; two utterances streamed, K1 once a chunk, their tapes
+   equal to the batch rows before the last pl_window - 1 frames);
+   nlextree=2 on the 20,000-word tree (4 utterances counted, K1 once, and
+   held against the CPU search on the card's senone scores).
+19. cpu_holds: every CPU hold above, collected (`Holds`).
+
+The CPU holds run in worker processes while the card goes on, so the
+phases run in the order that hands the holds over first: 1-3, 10, 15
+(K1), 16, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 6, 7, 13
+and 19.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -86,7 +116,10 @@ Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -114,9 +147,20 @@ S, K, D, T_K1 = 5150, 32, 39, 2000
 # The main path's batch: 16 utterances padded to 600 frames.
 T_MAIN = 16 * 600
 MODES = ("highest", "high", "bf16")
-# K1's widest depth, timed beside D=39: its depth 2D fills the 128 the
-# kernel instantiates, and "highest" and "high" have one ring stage there.
+# The widest depth of K1's one-instantiation-a-depth path, timed beside
+# D=39: its depth 2D fills 128, and "highest" and "high" have one ring
+# stage there.  Past it, the depth loop: D=78 (26 cepstra, 1s_c_d_dd) and
+# D=150.
 D_WIDE = 64
+D_LOOP = (78, 150)
+NCEP_WIDE = 26
+GRAMMARS = ("jsgf", "fsg")
+ALIGN_UTTS = 4
+PL_WINDOW, PL_WEIGHT = 5, 3.0
+TREE_COPIES, COPIES_UTTS = 2, 4
+# The CPU tests' wide beams (tests/test_torch_cuda.py), for lattices of
+# 100+ nodes an utterance.
+WIDE_BEAMS = {"beam": 1e-120, "wbeam": 1e-100, "lw": 2.0}
 # Error bounds, as multiples of M[t,s] = max_k(|const| + sum|x lin| +
 # sum x^2 quad), for features of width d.  Each mode against a float64
 # evaluation: MODE_BOUND.  Kernel against plain: in "high" and "bf16" the
@@ -139,6 +183,9 @@ PEAK_BYTES = 3.35e12
 SFU_EXPS_PER_CLOCK = 16
 DECODE_PASSES = 5
 T_SEMI, TOPN = 2000, 4
+# The CPU holds (see `Holds`): worker processes, torch threads each, and
+# utterances of a batch a task.
+HOLD_WORKERS, HOLD_THREADS, HOLD_UTTS = 3, 2, 4
 # Share of (t, s) whose PsParityScorer score may differ between the card
 # and the host CPU (the f32 density GEMMs sum in another order; the 10-bit
 # shift absorbs nearly every unit of difference; the tests measured none).
@@ -158,7 +205,15 @@ CEP_PIECE, RAW_PIECE_S = 25, 0.25
 LATTICE_RTOL = 1e-5
 
 
+# The host clock at the start of main: each phase's line carries the
+# seconds since then (`elapsed_s`), so that the command time splits into
+# phases.
+_START = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj["elapsed_s"] = time.perf_counter() - _START[0]
     print(json.dumps(obj), flush=True)
 
 
@@ -190,12 +245,21 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    secs = fused_gmm.build()
+    """K1's units (nvcc, in parallel) and, beside them, the lattice phase's
+    C++ host runtime (g++)."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.loaded)
+        secs = fused_gmm.build()
+        host_loaded = host.result()
     log = fused_gmm.library_path().with_suffix(".log").read_text()
     emit({"phase": "build", "seconds": round(secs, 3),
+          "native_loaded": host_loaded,
           "library": fused_gmm.library_path().name,
           "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln],
+          # ptxas's advisories that it serialised wgmma (none expected).
+          "wgmma_serialized": [ln.strip() for ln in log.splitlines()
+                               if "wgmma" in ln]})
 
 
 # ----------------------------------------------------------------------
@@ -314,6 +378,9 @@ def check_k1(dev, floored: bool, modes, exps_per_s: float, T: int = T_K1,
                  float((err_x / (MODE_BOUND[mode](D) * M)).max()),
              "plain_worst_fp64_err_over_bound":
                  float((err_r / (MODE_BOUND[mode](D) * M)).max())}
+        if pk.dp > fused_gmm.NARROW_DP:
+            r["frames_a_block"], r["a_staged_by_chunk"] = fused_gmm.plan(
+                mode, pk.dp)
         if timed:
             bound_ms, bound_by = k1_bound(T, mode, exps_per_s, D)
             r.update({
@@ -646,6 +713,15 @@ def phase_decoder(dev, fixtures) -> dict:
 
 
 # ----------------------------------------------------------------------
+# The CPU holds.  A card's decode is held against the host CPU's run of the
+# same search fed the card's own senone scores (every hold here: integer
+# tape values equal, float values within rtol 1e-5 over the valid frames,
+# words and segments equal), and utterance 0 against a CPU decode end to
+# end.  The CPU runs take longer than the card's, so they run in worker
+# processes (spawned, so they never touch CUDA) while the card goes on with
+# the next phases; each phase hands its holds over (`Holds.submit`) and the
+# phase "cpu_holds" collects them at the end, failing on any difference.
+# The timed phases share the host's cores with these workers.
 class CardScores(torch.nn.Module):
     """A scorer that returns given senone scores [B, Tpad, S], cut to the
     batch and frames it is asked for."""
@@ -658,74 +734,233 @@ class CardScores(torch.nn.Module):
         return self.scores[: feats.shape[0], : feats.shape[1]]
 
 
-def hold_against_cpu(search, fp, tapes, hyps, cpu_search, fx, cpu_fp,
-                     n: int) -> dict:
-    """The counted batch decode on the card (`tapes` [B, Tpad*E, ...] on the
-    host, `hyps`) held against the host CPU: integer tape values equal and
-    float values within rtol 1e-5 over each utterance's valid frames (all
-    the backtrace reads), words and segments equal.
+class GivenScores(torch.nn.Module):
+    """A scorer that returns the senone scores it was given, whatever the
+    features (the CPU grammar search fed the card's scores)."""
 
-    - `e2e`: utterance 0 decoded end to end on the CPU, with its own
-      features and scorer, against row 0 of the batch.
-    - `search`: the first n utterances of the batch through the CPU search
-      fed the card's senone scores, which holds the search alone with every
-      live slot of the batch.  The scorers are held card against CPU in
-      their own phases; how many of these scores the CPU scorer gives
-      otherwise is reported, not held."""
-    E = search.E
-    out = {}
+    def __init__(self, scores: torch.Tensor):
+        super().__init__()
+        self.scores = scores
 
-    def segs(h):
-        return [(s.word, s.start_frame, s.end_frame) for s in h.segments]
+    def score(self, feats):
+        return self.scores
 
-    def check(name, want):
-        cpu_tapes = [t.numpy() for t in cpu_search._last_batch[0]]
-        int_diff, rel = 0, 0.0
-        for i, c in enumerate(fx.ceps[:len(want)]):
-            for x, y in zip(tapes, cpu_tapes):
-                x, y = x[i, :len(c) * E], y[i, :len(c) * E]
-                if x.dtype.kind == "f":
-                    rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(
-                        np.abs(y), 1e-30))))
-                else:
-                    int_diff += int((x != y).sum())
-        same = all(a.words == b.words and segs(a) == segs(b)
-                   for a, b in zip(hyps, want))
-        out.update({f"{name}_utterances": len(want),
-                    f"{name}_int_values_differing": int_diff,
-                    f"{name}_float_max_rel_diff": rel,
-                    f"{name}_hyps_equal": same})
-        if int_diff or rel > 1e-5 or not same:
-            raise AssertionError(f"card and CPU decode differently: {out}")
 
-    check("e2e", cpu_search.decode_batch_cep(fx.ceps[:1], cpu_fp))
+def segs(h) -> list:
+    return [(s.word, s.start_frame, s.end_frame) for s in h.segments]
 
+
+def tape_diff(got, want) -> tuple:
+    """(integer values differing, largest relative float difference) of
+    two lists of arrays, pairwise of one shape."""
+    int_diff, rel = 0, 0.0
+    for x, y in zip(got, want):
+        if x.dtype.kind == "f":
+            rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(
+                np.abs(y), 1e-30), initial=0.0)))
+        else:
+            int_diff += int((x != y).sum())
+    return int_diff, rel
+
+
+def make_scorer(kind: str, fx, dev):
+    """The slices' scorers: "cont" (ContinuousScorer, K1 on the card) or
+    "ps" (PsParityScorer over the fixture's sendump)."""
+    if kind == "cont":
+        return ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev)
+    raw, meta = fixture.sendump_bytes(fx)
+    return PsParityScorer(fx.gauden, raw, fx.stream_slices(), topn=TOPN,
+                          wrap_uint8=meta["n_bits"] == 4, device=dev)
+
+
+# A worker's fixtures, CPU searches and Decoders, built once by key.
+_WORKER = {}
+
+
+def _worker_init(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+def _cached(key, make):
+    if key not in _WORKER:
+        _WORKER[key] = make()
+    return _WORKER[key]
+
+
+def _cpu_search(spec, kind: str, kw: tuple):
+    """Fixture `spec` = (seed, model, size) and its CPU NgramSearch."""
+    def make():
+        fx = _cached(spec, lambda: fixture.build(spec[0], model=spec[1],
+                                                 size=spec[2]))
+        return fx, NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                               make_scorer(kind, fx, "cpu"), device="cpu",
+                               **dict(kw))
+    return _cached((spec, kind, kw), make)
+
+
+def hold_search_task(spec, kind, kw, rows, scores, feats, Ts, card_segs
+                     ) -> dict:
+    """A worker's hold of utterances of a card batch: the CPU search fed
+    the card's senone scores [n, Tpad, S] (features [n, Tpad, D]) against
+    the card's tape rows and segments.  Also counts the scores the CPU
+    scorer gives otherwise (reported, not held)."""
+    t0 = time.perf_counter()
+    _, cpu = _cpu_search(spec, kind, kw)
+    E = cpu.E
+    own, cpu.scorer = cpu.scorer, CardScores(torch.as_tensor(scores))
+    try:
+        hyps = cpu.decode_batch([feats[i, :T] for i, T in enumerate(Ts)])
+    finally:
+        cpu.scorer = own
+    want = [t.numpy() for t in cpu._last_batch[0]]
+    int_diff, rel = tape_diff(
+        [x[i, :T * E] for x in rows for i, T in enumerate(Ts)],
+        [y[i, :T * E] for y in want for i, T in enumerate(Ts)])
+    valid = np.arange(feats.shape[1])[None, :] < np.asarray(Ts)[:, None]
+    with torch.inference_mode():
+        differ = own.score(torch.as_tensor(feats)).numpy() != scores
+    return {"utterances": len(Ts), "int_values_differing": int_diff,
+            "float_max_rel_diff": rel,
+            "hyps_equal": [segs(h) for h in hyps] == card_segs,
+            "cpu_scores_differing": int((differ & valid[..., None]).sum()),
+            "scores_compared": int(valid.sum()) * scores.shape[2],
+            "seconds": time.perf_counter() - t0}
+
+
+def hold_e2e_task(spec, kind, kw, row0, T0: int, card_segs) -> dict:
+    """A worker's end-to-end hold: utterance 0 of fixture `spec` decoded on
+    the CPU (its own features and scorer) against the card batch's row 0."""
+    t0 = time.perf_counter()
+    fx, cpu = _cpu_search(spec, kind, kw)
+    fp = _cached(("fp", spec), lambda: FeatPipeline(fx.feat_config(),
+                                                    device="cpu"))
+    hyp = cpu.decode_batch_cep(fx.ceps[:1], fp)[0]
+    E = cpu.E
+    int_diff, rel = tape_diff([x[0, :T0 * E] for x in row0],
+                              [y.numpy()[0, :T0 * E]
+                               for y in cpu._last_batch[0]])
+    return {"utterances": 1, "int_values_differing": int_diff,
+            "float_max_rel_diff": rel, "hyps_equal": segs(hyp) == card_segs,
+            "seconds": time.perf_counter() - t0}
+
+
+def hold_grammar_task(paths: tuple, feats, scores, card_exits, card_segs
+                      ) -> dict:
+    """A worker's hold of one grammar utterance: the CPU Decoder's grammar
+    search (model directory and grammar `paths`) fed the card's senone
+    scores [T, S], against the card's exit tapes (`FsgSearch._last`)."""
+    t0 = time.perf_counter()
+    cpu = _cached(paths, lambda: Decoder(device="cpu", **dict(paths)))
+    own = cpu.search.scorer
+    cpu.search.scorer = GivenScores(torch.as_tensor(scores))
+    try:
+        hyp = cpu.search.decode(feats)
+    finally:
+        cpu.search.scorer = own
+    int_diff, rel = tape_diff(card_exits, cpu.search._last[:4])
+    return {"utterances": 1, "int_values_differing": int_diff,
+            "float_max_rel_diff": rel, "hyps_equal": segs(hyp) == card_segs,
+            "seconds": time.perf_counter() - t0}
+
+
+def grammar_e2e_task(paths: tuple, mfc: str, card_segs) -> dict:
+    """A worker's end-to-end grammar hold: one mfc file through the CPU
+    Decoder against the card's segments."""
+    t0 = time.perf_counter()
+    cpu = _cached(paths, lambda: Decoder(device="cpu", **dict(paths)))
+    return {"utterances": 1, "int_values_differing": 0,
+            "float_max_rel_diff": 0.0,
+            "hyps_equal": segs(cpu.decode_cep_file(mfc)) == card_segs,
+            "seconds": time.perf_counter() - t0}
+
+
+class Holds:
+    """The CPU holds in flight: a spawned pool of HOLD_WORKERS processes of
+    HOLD_THREADS torch threads each; every task is named by the phase (and
+    part) whose output it holds."""
+
+    def __init__(self):
+        ctx = multiprocessing.get_context("spawn")
+        self.pool = ctx.Pool(HOLD_WORKERS, _worker_init, (HOLD_THREADS,))
+        self.jobs = []
+
+    def submit(self, name: str, fn, *args) -> None:
+        self.jobs.append((name, self.pool.apply_async(fn, args)))
+
+    def finish(self) -> dict:
+        """Wait for every hold; emit phase "cpu_holds" (per name: tasks,
+        utterances, the differences, the workers' seconds) and fail on any
+        difference."""
+        t0 = time.perf_counter()
+        out = {}
+        for name, job in self.jobs:
+            r = job.get()
+            o = out.setdefault(name, {"tasks": 0, "utterances": 0,
+                                      "int_values_differing": 0,
+                                      "float_max_rel_diff": 0.0,
+                                      "hyps_equal": True, "seconds": 0.0})
+            o["tasks"] += 1
+            for k in ("utterances", "int_values_differing", "seconds",
+                      "cpu_scores_differing", "scores_compared"):
+                if k in r:
+                    o[k] = o.get(k, 0) + r[k]
+            o["float_max_rel_diff"] = max(o["float_max_rel_diff"],
+                                          r["float_max_rel_diff"])
+            o["hyps_equal"] &= r["hyps_equal"]
+        res = {"phase": "cpu_holds", "workers": HOLD_WORKERS,
+               "threads": HOLD_THREADS, "wait_s": time.perf_counter() - t0,
+               "holds": out}
+        emit(res)
+        bad = {k: v for k, v in out.items() if v["int_values_differing"]
+               or v["float_max_rel_diff"] > 1e-5 or not v["hyps_equal"]}
+        if bad:
+            raise AssertionError(f"card and CPU decode differently: {bad}")
+        return res
+
+    def close(self, ok: bool) -> None:
+        if ok:
+            self.pool.close()
+        else:
+            self.pool.terminate()
+        self.pool.join()
+
+
+def submit_batch_holds(holds: Holds, name: str, spec, kind: str, kw: dict,
+                       search, fp, fx, tapes, hyps, n: int,
+                       e2e: bool = True) -> None:
+    """Hand a counted card batch (`tapes` [B, Tpad*E, ...] on the host,
+    `hyps`) to the CPU holds: its first n utterances through the CPU
+    search fed the card's senone scores, HOLD_UTTS a task, and (`e2e`)
+    utterance 0 end to end."""
     c, T, Ts = search._pad(fx.ceps)
     with torch.inference_mode():
         feats = fp._padded_kernel(c, T, True)
-        scores = search.scorer.score(feats).cpu()
-    feats = feats.cpu()
-    own = cpu_search.scorer
-    cpu_search.scorer = CardScores(scores)
-    try:
-        check("search", cpu_search.decode_batch(
-            [feats[i, :Ts[i]].numpy() for i in range(n)]))
-    finally:
-        cpu_search.scorer = own
-    valid = torch.arange(feats.shape[1])[None, :] < T[:n, None].cpu()
-    with torch.inference_mode():
-        differ = own.score(feats[:n]) != scores[:n]
-    out["cpu_scores_differing"] = int((differ & valid[..., None]).sum())
-    out["scores_compared"] = int(valid.sum()) * scores.shape[2]
-    return out
+        scores = search.scorer.score(feats).cpu().numpy()
+    feats = feats.cpu().numpy()
+    kw = tuple(sorted(kw.items()))
+    for lo in range(0, n, HOLD_UTTS):
+        hi = min(n, lo + HOLD_UTTS)
+        holds.submit(f"{name}/search", hold_search_task, spec, kind, kw,
+                     [t[lo:hi] for t in tapes], scores[lo:hi], feats[lo:hi],
+                     Ts[lo:hi], [segs(h) for h in hyps[lo:hi]])
+    if e2e:
+        holds.submit(f"{name}/e2e", hold_e2e_task, spec, kind, kw,
+                     [t[:1] for t in tapes], Ts[0], segs(hyps[0]))
 
 
-def phase_large_vocab(dev, card: str, name: str, fx, make_scorer,
-                      want_lex: str, want_lm: str, hold_utts: int) -> dict:
+def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
+                      want_lex: str, want_lm: str, hold_utts: int | None,
+                      holds: Holds) -> dict:
+    """A large-vocabulary batch of fixture `spec` under `auto`, counted,
+    timed and held against the CPU (its first `hold_utts` utterances, None:
+    all)."""
+    fx = fixture.build(spec[0], model=spec[1], size=spec[2])
+    if hold_utts is None:
+        hold_utts = len(fx.ceps)
     t0 = time.perf_counter()
     fp = FeatPipeline(fx.feat_config(), device=dev)
-    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, make_scorer(dev),
-                         device=dev)
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                         make_scorer(kind, fx, dev), device=dev)
     setup_s = time.perf_counter() - t0
     g = search.graph
     if (g.rc_mode, g.lc_mode, g.lex_mode) != ("composite", "composite",
@@ -765,13 +1000,8 @@ def phase_large_vocab(dev, card: str, name: str, fx, make_scorer,
         if not (h.segments and np.isfinite(h.score)):
             raise AssertionError(f"{name}: empty or non-finite hypothesis")
 
-    t0 = time.perf_counter()
-    cpu_search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
-                             make_scorer("cpu"), device="cpu")
-    hold = hold_against_cpu(search, fp, tapes, hyps, cpu_search, fx,
-                            FeatPipeline(fx.feat_config(), device="cpu"),
-                            hold_utts)
-    hold["cpu_hold_s"] = time.perf_counter() - t0
+    submit_batch_holds(holds, name, spec, kind, {}, search, fp, fx, tapes,
+                       hyps, hold_utts)
     errs = sum(fixture.word_errors(r, h.words)
                for r, h in zip(fx.transcripts, hyps))
     n_ref = sum(len(r) for r in fx.transcripts)
@@ -789,9 +1019,9 @@ def phase_large_vocab(dev, card: str, name: str, fx, make_scorer,
            "k1_launches": launches, "peak_mb": peak,
            "hyps_identical_across_passes": True,
            "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref,
-           **hold}
+           "cpu_hold_utterances": hold_utts}
     emit(out)
-    return out, (search, fp, tapes, hyps)
+    return out, (fx, search, fp, tapes, hyps)
 
 
 # ----------------------------------------------------------------------
@@ -830,6 +1060,7 @@ def hold_stream(search, final, partials, tapes, i: int, hyp) -> dict:
     int_diff, rel = 0, 0.0
     for x, y in zip(search._last[:6], tapes):
         y = y[i, :T * E]
+        x = x[: len(y)]
         if x.dtype.kind == "f":
             rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(
                 np.abs(y), 1e-30))))
@@ -947,10 +1178,16 @@ def phase_decoder_stream(dev, fixtures) -> dict:
     return out
 
 
-def phase_lattice(search, fp, fx, hyps) -> dict:
-    """Phase 4's batch: each utterance's lattice and its rescoring."""
+def phase_lattice(dev, search, fp, fx) -> dict:
+    """Phase 4's batch with wide beams: each utterance's lattice and its
+    rescoring."""
     if not native.loaded():
         raise AssertionError("the native runtime did not build or load")
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, search.scorer,
+                         device=dev, **WIDE_BEAMS)
+    fused_mixture_scores.launches = 0
+    hyps = search.decode_batch_cep(fx.ceps, fp)
+    launches = fused_mixture_scores.launches
     bplw, start = float(search.config["bestpathlw"]), search.start_lmwid
     rows = []
     for i in range(len(fx.ceps)):
@@ -980,6 +1217,9 @@ def phase_lattice(search, fp, fx, hyps) -> dict:
     errs = sum(fixture.word_errors(r, h.words)
                for r, h in zip(fx.transcripts, rescored))
     out = {"phase": "lattice", "native_loaded": native.loaded(),
+           "beams": WIDE_BEAMS, "k1_launches": launches,
+           "viterbi_word_errors": sum(fixture.word_errors(r, h.words)
+                                      for r, h in zip(fx.transcripts, hyps)),
            "utterances": len(rows),
            "nodes": [r["nodes"] for r in rows],
            "build_ms_median": statistics.median(r["build_ms"] for r in rows),
@@ -1003,10 +1243,311 @@ def phase_lattice(search, fp, fx, hyps) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+def phase_k1_wide(dev, exps: float) -> dict:
+    """K1's depth loop at D=78 and D=150 (phase 3's checks and times)."""
+    out = {}
+    for d in D_LOOP:
+        out[d] = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps,
+                          D=d)
+        check_k1(dev, floored=True, modes=MODES, exps_per_s=exps,
+                 timed=False, D=d)
+    return out
+
+
+def decode_ceps(dec, ceps) -> list:
+    """Whole utterances of cepstra through a Decoder (any width: no mfc
+    file, whose reader assumes 13 cepstra)."""
+    out = []
+    for c in ceps:
+        dec.start_utt()
+        dec.process_cep(c)
+        out.append(dec.end_utt())
+    return out
+
+
+def phase_decoder_wide(dev, fx) -> dict:
+    """The C2 case: a continuous model with D=78 through the Decoder."""
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = fixture.write_model_dir(fx, tmp)
+        t0 = time.perf_counter()
+        dec = Decoder(device=dev, **kw)
+        init_s = time.perf_counter() - t0
+        if type(dec.scorer) is not ContinuousScorer or \
+                dec.scorer.packed().dp != 160:
+            raise AssertionError("the D=78 model did not load for K1")
+        fused_mixture_scores.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps = decode_ceps(dec, fx.ceps[:DECODER_UTTS])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = fused_mixture_scores.launches
+        cpu = decode_ceps(Decoder(device="cpu", **kw), fx.ceps[:1])[0]
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, hyps))
+    out = {"phase": "decoder_wide", "S": fx.size.n_sen,
+           "K": fx.size.n_density, "D": fx.gauden.veclen[0],
+           "depth": dec.scorer.packed().dp, "utterances": len(hyps),
+           "init_s": init_s, "decode_s": decode_s, "k1_launches": launches,
+           "utt0_equal_to_cpu": segs(hyps[0]) == segs(cpu),
+           "utt0_score_rel_diff": abs(hyps[0].score - cpu.score)
+           / abs(cpu.score),
+           "word_errors": errs,
+           "ref_words": sum(len(r) for r in fx.transcripts[:len(hyps)])}
+    emit(out)
+    if launches != len(hyps) or not out["utt0_equal_to_cpu"] or \
+            out["utt0_score_rel_diff"] > 1e-5:
+        raise AssertionError(f"decoder_wide: {out}")
+    return out
+
+
+def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
+    """The grammar path on the slice's model directory (written under
+    `tmp`, which outlives the CPU holds): per grammar, 16 utterances
+    through the Decoder, then the FSG stream of utterance 0."""
+    out = {"phase": "grammar", "grammars": {}}
+    launches = 0
+    kw = fixture.write_model_dir(fx, os.path.join(tmp, "grammar"))
+    mfcs = []
+    for i, c in enumerate(fx.ceps):
+        mfcs.append(os.path.join(tmp, "grammar", f"u{i}.mfc"))
+        write_mfc(mfcs[-1], c)
+    for key in GRAMMARS:
+        g = {"hmm": kw["hmm"], "dict": kw["dict"],
+             key: os.path.join(tmp, "grammar", "grammar." + key)}
+        t0 = time.perf_counter()
+        dec = Decoder(device=dev, **g)
+        init_s = time.perf_counter() - t0
+        search = dec.search
+        # The main path, once, counted and timed.
+        fused_mixture_scores.launches = 0
+        hyps, exits, host_ms, dev_ms = [], [], [], []
+        for p in mfcs:
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            hyps.append(dec.decode_cep_file(p))
+            ev1.record()
+            torch.cuda.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            dev_ms.append(ev0.elapsed_time(ev1))
+            exits.append(search._last[:4])
+        n = fused_mixture_scores.launches
+        lat = dec.get_lattice()
+        best, nb = lat.bestpath(), lat.nbest(5)
+        # The grammar stream: utterance 0 in 50-frame pushes, counted.
+        feats = dec.fp.compute(fx.ceps[0])
+        fused_mixture_scores.launches = 0
+        st = search.stream_start()
+        partials = []
+        for i in range(0, len(feats), T_STREAM):
+            search.stream_push(st, feats[i: i + T_STREAM])
+            partials.append(search.stream_partial(st).words)
+        final = search.stream_end(st)
+        ns = fused_mixture_scores.launches
+        chunks = -(-len(feats) // T_STREAM)
+        launches += n + ns
+        # The CPU holds: utterance 0 end to end, and every utterance's
+        # search on the card's senone scores against its exit tapes.
+        paths = tuple(sorted(g.items()))
+        holds.submit(f"grammar/{key}/e2e", grammar_e2e_task, paths, mfcs[0],
+                     segs(hyps[0]))
+        for i, c in enumerate(fx.ceps):
+            feats = dec.fp.compute(c)
+            with torch.inference_mode():
+                scores = dec.scorer.score(
+                    torch.as_tensor(feats, device=dev)).cpu().numpy()
+            holds.submit(f"grammar/{key}/search", hold_grammar_task, paths,
+                         feats, scores, exits[i], segs(hyps[i]))
+        errs = sum(fixture.word_errors(r, h.words)
+                   for r, h in zip(fx.transcripts, hyps))
+        frames = sum(len(c) for c in fx.ceps)
+        r = {"links": search.n_link, "states": search.n_state,
+             "channels": search.graph.n_chan,
+             "rc_variants": search.graph.n_rcvar,
+             "prune": search.prune, "init_s": init_s,
+             "utterances": len(hyps), "k1_launches": n,
+             "ms_per_utt_host": statistics.median(host_ms),
+             "ms_per_utt_cuda_events": statistics.median(dev_ms),
+             "host_ms_total": sum(host_ms),
+             "xRT": frames / 100.0 / (sum(host_ms) / 1e3),
+             "word_errors": errs,
+             "ref_words": sum(len(t) for t in fx.transcripts),
+             "lattice_nodes_alive": int(lat.alive.sum()),
+             "bestpath_equal_viterbi": best.words == hyps[-1].words,
+             "nbest": [h.text for h in nb],
+             "cpu_hold_utterances": len(hyps),
+             "stream_final_equal": segs(final) == segs(hyps[0]),
+             "stream_partials": len(partials), "stream_chunks": chunks,
+             "stream_k1_launches": ns}
+        out["grammars"][key] = r
+        if n != len(mfcs) or ns != chunks or \
+                not r["stream_final_equal"] or not nb or \
+                nb[0].words != best.words:
+            emit(out)
+            raise AssertionError(f"grammar {key}: {r}")
+    out["k1_launches"] = launches
+    emit(out)
+    return out
+
+
+def phase_align_allphone(dev, fx) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = fixture.write_model_dir(fx, tmp)
+        gpu, cpu = Decoder(device=dev, **kw), Decoder(device="cpu", **kw)
+        fused_mixture_scores.launches = 0
+        rows = []
+        for i in range(ALIGN_UTTS):
+            feats = gpu.fp.compute(fx.ceps[i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ws, ps, states, score = gpu.align(feats, fx.transcripts[i])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            wc, pc, sc, scc = cpu.align(feats, fx.transcripts[i])
+            rows.append({"frames": len(states), "ms": ms,
+                         "states_equal": states == sc,
+                         "phones_equal": [(p.phone, p.start_frame,
+                                           p.end_frame) for p in ps]
+                         == [(p.phone, p.start_frame, p.end_frame)
+                             for p in pc],
+                         "words": [w.word for w in ws] == fx.transcripts[i],
+                         "score_rel_diff": abs(score - scc) / abs(scc)})
+        launches = fused_mixture_scores.launches
+        ap = {"hmm": kw["hmm"], "allphone": "uniform", "lw": 3.0}
+        ga, ca = Decoder(device=dev, **ap), Decoder(device="cpu", **ap)
+        feats = ga.fp.compute(fx.ceps[0])
+        fused_mixture_scores.launches = 0
+        t0 = time.perf_counter()
+        h = ga.search.decode(feats)
+        allphone_s = time.perf_counter() - t0
+        launches += fused_mixture_scores.launches
+        hc = ca.search.decode(feats)
+    out = {"phase": "align_allphone", "align": rows, "k1_launches": launches,
+           "allphone_phones": len(h.words), "allphone_s": allphone_s,
+           "allphone_equal_to_cpu": segs(h) == segs(hc)}
+    emit(out)
+    if any(not (r["states_equal"] and r["phones_equal"] and r["words"]
+                and r["score_rel_diff"] <= 1e-5) for r in rows) or \
+            not out["allphone_equal_to_cpu"] or launches != ALIGN_UTTS + 1:
+        raise AssertionError(f"align_allphone: {out}")
+    return out
+
+
+def phase_ngram_options(dev, fx, spec, large, large_spec, holds: Holds
+                        ) -> dict:
+    """pl_window on the continuous slice, batch and stream; nlextree on the
+    20,000-word tree; each batch held against the CPU search on the card's
+    senone scores (`Holds`)."""
+    out = {"phase": "ngram_options"}
+    launches = 0
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    kw = {"pl_window": PL_WINDOW, "pl_weight": PL_WEIGHT}
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                         ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
+                         device=dev, **kw)
+    fused_mixture_scores.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps = search.decode_batch_cep(fx.ceps, fp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = fused_mixture_scores.launches
+    tapes = [t.cpu().numpy() for t in search._last_batch[0]]
+    submit_batch_holds(holds, "ngram_options/pl_window", spec, "cont", kw,
+                       search, fp, fx, tapes, hyps, len(fx.ceps), e2e=False)
+    # Two utterances streamed, K1 once a chunk; the frames before the last
+    # pl_window - 1 look ahead over the same frames in the stream and in
+    # the batch.
+    feats_list = batch_features(search, fp, fx)
+    fused_mixture_scores.launches = 0
+    streams = []
+    E, tail = search.E, PL_WINDOW - 1
+    for i in range(2):
+        final, partials, ms, st = run_stream(search, feats_list[i], 3000)
+        T = search._last[6]
+        h = hold_stream(search, final, partials, [t[:, : (T - tail) * E]
+                                                  for t in tapes], i, hyps[i])
+        streams.append(h)
+    ns = fused_mixture_scores.launches
+    chunks = sum(-(-len(feats_list[i]) // T_STREAM) for i in range(2))
+    launches += n + ns
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, hyps))
+    out["pl_window"] = {"window": PL_WINDOW, "weight": PL_WEIGHT,
+                        "utterances": len(hyps), "k1_launches": n,
+                        "decode_s": wall, "xRT": fx.audio_seconds / wall,
+                        "word_errors": errs,
+                        "cpu_hold_utterances": len(hyps), "streams": streams,
+                        "stream_chunks": chunks, "stream_k1_launches": ns}
+
+    # N tree copies on the 20,000-word tree.
+    lfp = FeatPipeline(large.feat_config(), device=dev)
+    tkw = {"lexmode": "tree", "nlextree": TREE_COPIES}
+    tree = NgramSearch(large.lm, large.dict, large.mdef, large.tmat,
+                       ContinuousScorer(large.gauden, large.ln_mixw,
+                                        device=dev), device=dev, **tkw)
+    if not (tree._tree and tree.nlextree == TREE_COPIES):
+        raise AssertionError("the 20,000-word graph is not a tree")
+    ceps = large.ceps[:COPIES_UTTS]
+    sub = dataclasses.replace(large, ceps=ceps,
+                              transcripts=large.transcripts[:COPIES_UTTS])
+    fused_mixture_scores.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thyps = tree.decode_batch_cep(ceps, lfp)
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    tn = fused_mixture_scores.launches
+    launches += tn
+    ttapes = [t.cpu().numpy() for t in tree._last_batch[0]]
+    submit_batch_holds(holds, "ngram_options/nlextree", large_spec, "cont",
+                       tkw, tree, lfp, sub, ttapes, thyps, COPIES_UTTS,
+                       e2e=False)
+    audio = sum(len(c) for c in ceps) / 100.0
+    out["nlextree"] = {
+        "copies": TREE_COPIES, "channels": tree.graph.n_chan,
+        "utterances": len(thyps), "k1_launches": tn, "decode_s": twall,
+        "xRT": audio / twall,
+        "word_errors": sum(fixture.word_errors(r, h.words)
+                           for r, h in zip(sub.transcripts, thyps)),
+        "ref_words": sum(len(r) for r in sub.transcripts),
+        "cpu_hold_utterances": COPIES_UTTS}
+    out["k1_launches"] = launches
+    emit(out)
+    bad = [h for h in streams if h["int_values_differing"]
+           or h["float_max_rel_diff"] > 1e-5 or not h["final_equal"]]
+    # One launch a batch, one a stream chunk.
+    if bad or n != 1 or tn != 1 or ns != chunks:
+        raise AssertionError(f"ngram_options: {out}")
+    return out
+
+
 def main() -> int:
+    _START[0] = time.perf_counter()
     info = phase_device()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    holds, ok = Holds(), False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            result = run(info, dev, holds, tmp)
+        ok = True
+    finally:
+        holds.close(ok)
+    emit(result)
+    print(info["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
+                                 "count": info["count"]}})
+    return 0
+
+
+def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
+    """Every phase after the device's, in an order that hands the longest
+    CPU holds to the workers first; returns the kernel table."""
     phase_build()
     exps = info["exps_per_s"]
     check_k1(dev, floored=False, modes=MODES, exps_per_s=exps)
@@ -1015,55 +1556,57 @@ def main() -> int:
     check_k1(dev, floored=False, modes=MODES, exps_per_s=exps, D=D_WIDE)
     k1_stream = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps,
                          T=T_STREAM)
+    k1_loop = phase_k1_wide(dev, exps)
+    cont_spec = (SEED, "cont", fixture.FULL)
     cont = fixture.build(SEED)
+    grammar = phase_grammar(dev, cont, tmp, holds)
+    card = info["nvidia_smi"]
+    phase_large_vocab(dev, card, "large_vocab_static",
+                      (SEED, "semi", fixture.LARGE_5K), "ps", "flat", "rows",
+                      hold_utts=None, holds=holds)
+    large_spec = (SEED, "cont", fixture.LARGE)
+    tree, (large, search, fp, tapes, hyps) = phase_large_vocab(
+        dev, card, "large_vocab_tree", large_spec, "cont", "tree", "hashed",
+        hold_utts=1, holds=holds)
+    if tree["k1_launches"] != 1:
+        raise AssertionError("the tree decode did not launch K1 once")
+    stream_tree = stream_phase("stream_tree", search,
+                               batch_features(search, fp, large), tapes, hyps,
+                               [0], [3000])
+    del search, fp, tapes, hyps
+    options = phase_ngram_options(dev, cont, cont_spec, large, large_spec,
+                                  holds)
+    del large
+    dec_wide = phase_decoder_wide(dev, fixture.build(SEED, ncep=NCEP_WIDE))
     sl, (search, fp, tapes, hyps) = phase_slice(dev, cont)
     stream = stream_phase("stream", search, batch_features(search, fp, cont),
                           tapes, hyps, range(STREAM_UTTS),
                           [2 * T_STREAM] + [3000] * (STREAM_UTTS - 1))
-    phase_lattice(search, fp, cont, hyps)
+    lat = phase_lattice(dev, search, fp, cont)
     del search, fp, tapes, hyps
+    align = phase_align_allphone(dev, cont)
     semi = fixture.build(SEED, model="semi")
     phase_semicont_scorer(dev, semi)
     phase_semicont_slice(dev, semi)
     dec = phase_decoder(dev, {"cont": cont, "semi": semi})
     dec_stream = phase_decoder_stream(dev, {"cont": cont, "semi": semi})
-    card = info["nvidia_smi"]
-    large = fixture.build(SEED, size=fixture.LARGE)
-    tree, (search, fp, tapes, hyps) = phase_large_vocab(
-        dev, card, "large_vocab_tree", large,
-        lambda d: ContinuousScorer(large.gauden, large.ln_mixw, device=d),
-        "tree", "hashed", hold_utts=1)
-    if tree["k1_launches"] < 1:
-        raise AssertionError("the tree decode did not launch K1")
-    stream_tree = stream_phase("stream_tree", search,
-                               batch_features(search, fp, large), tapes, hyps,
-                               [0], [3000])
-    del large, search, fp, tapes, hyps
-    semi5k = fixture.build(SEED, model="semi", size=fixture.LARGE_5K)
-    raw, meta = fixture.sendump_bytes(semi5k)
-    phase_large_vocab(
-        dev, card, "large_vocab_static", semi5k,
-        lambda d: PsParityScorer(semi5k.gauden, raw, semi5k.stream_slices(),
-                                 topn=TOPN, wrap_uint8=meta["n_bits"] == 4,
-                                 device=d),
-        "flat", "rows", hold_utts=len(semi5k.ceps))
+    holds.finish()
     # The batch's shape (T=9,600) keys the row; the stream's (T=50, one
-    # chunk) rides beside it.
+    # chunk) and the depth loop's (D=78, 150 at T=2000) ride beside it.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    emit({"kernels": [{
+    return {"kernels": [{
         "name": "fused_gmm", "route": "cuda",
         "source": "cmusphinx_tpu_torch/csrc/fused_gmm.cu",
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
         "launches": sum(p["k1_launches"] for p in (
-            sl, dec, tree, stream, stream_tree, dec_stream)),
+            sl, dec, tree, stream, stream_tree, dec_stream, lat, dec_wide,
+            grammar, align, options)),
         **{k: k1["highest"][k] for k in keys},
         "stream_shape": {"T": T_STREAM, **{k: k1_stream["highest"][k]
-                                           for k in keys}}}]})
-    print(info["nvidia_smi"], flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
-                                 "count": info["count"]}})
-    return 0
+                                           for k in keys}},
+        "depth_loop": {f"D={d}": {m: {k: k1_loop[d][m][k] for k in keys}
+                                  for m in MODES} for d in D_LOOP}}]}
 
 
 if __name__ == "__main__":

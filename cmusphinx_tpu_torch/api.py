@@ -1,5 +1,7 @@
 """Top-level decoder API (port of `cmusphinx_tpu/api.py`: `DECODER_ARGS` and
-the N-gram path of `Decoder`, batch and streaming, with its results).
+`Decoder` with every search of the reference: N-gram, batch and streaming,
+with its results; grammar (-fsg, -jsgf, -srgs, -cfg); allphone; forced
+alignment by `align`).
 
     d = Decoder(hmm=".../model_dir", lm=".../lm.arpa", dict=".../words.dict",
                 device="cuda")
@@ -26,8 +28,13 @@ gives `SemiContinuousScorer`, one codebook per senone `ContinuousScorer`
 pipeline, the frontend and the search live: the card ("cuda") unless the
 caller asks for "cpu".
 
-Not ported yet, and raising NotImplementedError: the grammar, allphone
-and alignment searches (ROADMAP A12).
+The search is chosen in the reference's order (ps_reinit): -allphone,
+-fsg, -jsgf, -srgs or -cfg, -lmctl, -lm.  `FSG_ARGS` are registered after
+`NGRAM_ARGS`, and `Config.register` keeps the first default it sees, so
+the grammar search takes the N-gram table's defaults where the two share a
+name (`prune` is then True), as in the reference.  Streaming through the
+`Decoder` stays N-gram only, as in the reference; the grammar search's own
+stream (`FsgSearch.stream_*`) is reached on the search.
 """
 
 from __future__ import annotations
@@ -38,8 +45,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .models.cfg import Cfg
 from .models.dict import Dictionary
+from .models.fsg import FsgModel
 from .models.gauden import read_gauden
+from .models.jsgf import JsgfGrammar
 from .models.lmset import NgramModelSet
 from .models.mdef import Mdef
 from .models.mllr import MllrTransform
@@ -48,6 +58,8 @@ from .models.sendump import read_mixture_weights, read_sendump
 from .models.tmat import TransitionMatrices
 from .utils.bio import read_mfc
 from .utils.config import Arg, Config
+from .decode.align import AlignSearch, allphone_search
+from .decode.fsg_search import FSG_ARGS, FsgSearch
 from .decode.ngram_search import NGRAM_ARGS, NgramSearch
 from .decode.results import Hypothesis, Segment
 from .frontend.fe import FE_ARGS, Frontend, FrontendStream
@@ -98,12 +110,6 @@ DECODER_ARGS = [
     Arg("samprate", float, 16000.0, "Sampling rate"),
 ]
 
-_GRAMMARS = ("fsg", "jsgf", "srgs", "cfg", "allphone")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
 
 class Decoder:
     """Speech decoder over one acoustic model + the N-gram search."""
@@ -114,6 +120,7 @@ class Decoder:
                Config(DECODER_ARGS, FE_ARGS, FEAT_ARGS, NGRAM_ARGS))
         cfg.register(DECODER_ARGS).register(FE_ARGS).register(FEAT_ARGS)
         cfg.register(NGRAM_ARGS)
+        cfg.register(FSG_ARGS)
         cfg.update(**kwargs)
         self.config = cfg
         self.device = torch.device(device)
@@ -164,11 +171,26 @@ class Decoder:
 
         # Search module (ps_reinit search selection :257-280).
         self.search = None
-        for key in _GRAMMARS:
-            if str(cfg[key]):
-                raise _not_ported(f"-{key} (grammar and allphone searches)",
-                                  "A12")
-        if str(cfg["lmctl"]):
+        if str(cfg["allphone"]):
+            # Phoneme decoding with a phone N-gram LM or a uniform one.
+            spec = str(cfg["allphone"])
+            plm = None if spec == "uniform" else NgramModel.read(spec)
+            self.search = allphone_search(self.mdef, self.tmat, self.scorer,
+                                          lm=plm, config=cfg,
+                                          device=self.device)
+        elif str(cfg["fsg"]):
+            self.search = self._fsg_search(FsgModel.read(str(cfg["fsg"])))
+        elif str(cfg["jsgf"]):
+            gram = JsgfGrammar.parse_file(str(cfg["jsgf"]))
+            self.search = self._fsg_search(
+                gram.build_fsg(str(cfg["toprule"]) or None))
+        elif str(cfg["srgs"]) or str(cfg["cfg"]):
+            # CFG/SRGS grammar -> its regular approximation, an FSG.
+            g = (Cfg.parse_srgs_file(str(cfg["srgs"])) if str(cfg["srgs"])
+                 else Cfg.read_simple(str(cfg["cfg"])))
+            self.search = self._fsg_search(
+                g.to_fsg(max_expansion=int(cfg["cfg_maxexp"])))
+        elif str(cfg["lmctl"]):
             self.lmset = NgramModelSet.read_lmctl(str(cfg["lmctl"]))
             if str(cfg["lmname"]):
                 self.lmset.select(str(cfg["lmname"]))
@@ -184,6 +206,10 @@ class Decoder:
     def _ngram_search(self, lm: NgramModel) -> NgramSearch:
         return NgramSearch(lm, self.dict, self.mdef, self.tmat, self.scorer,
                            config=self.config, device=self.device)
+
+    def _fsg_search(self, fsg: FsgModel) -> FsgSearch:
+        return FsgSearch(fsg, self.dict, self.mdef, self.tmat, self.scorer,
+                         config=self.config, device=self.device)
 
     # ------------------------------------------------------------------
     def _init_scorer(self, cfg, gauden, model_file):
@@ -385,4 +411,13 @@ class Decoder:
 
     def align(self, feats_or_raw: np.ndarray, words: List[str],
               raw: bool = False):
-        raise _not_ported("forced alignment", "A12")
+        """Forced alignment (state_align / sphinx3_align capability) of
+        features, or of PCM samples with raw=True: returns (word segments,
+        phone segments, state ids, score)."""
+        if raw:
+            cep = self.fe.process(np.asarray(feats_or_raw, np.float32))
+            feats = self.fp.compute(cep)
+        else:
+            feats = np.asarray(feats_or_raw)
+        return AlignSearch(self.dict, self.mdef, self.tmat, self.scorer,
+                           device=self.device).align(feats, words)

@@ -5,8 +5,9 @@ Port of `cmusphinx_tpu/decode/ngram_search.py` (`NGRAM_ARGS`, `NgramVocab`,
 `topk2`, `NgramSearch.__init__`, `_xscores_all`, `_init_hmmc`, `_make_core`,
 `_expand_block_batched`, `_init_hmmc_static`, the static cores
 `_make_core_static` / `_make_core_static_batched`, `_setup_tree_bgla`,
-`_bgla_rows`, `_init_hmmc_tree`, the tree cores `_make_core_tree` (one copy)
-/ `_make_core_tree_batched`, `device_decode`, `device_decode_batched`,
+`_bgla_rows`, `_init_hmmc_tree`, the tree cores `_make_core_tree` (any
+number of copies) / `_make_core_tree_batched`, the phone-loop lookahead
+`pl_window`, `device_decode`, `device_decode_batched`,
 `device_backtrace`, `_hyp_from_chase`, `decode`, `decode_batch`,
 `decode_batch_cep`, the streaming decode `stream_start` / `stream_push` /
 `stream_partial` / `stream_end`, and the host results layer: the readout
@@ -23,7 +24,18 @@ one of three frame steps:
 - `_step_tree`: the prefix-tree lexicon (composite contexts); a unigram
   lookahead smear inside the tree, an optional bigram correction at the
   roots, the exact trigram for a shortlist of exits, and an 8-bit entry
-  age as the token payload.
+  age as the token payload.  With `nlextree` N > 1, `_step_tree_copies`
+  runs N copies of the tree `[B, N, C, S]`: copy n takes the n-th best
+  history-distinct re-entry, and the payload is the tape slot.
+
+`pl_window` W > 0 adds the CI-phone lookahead to every channel's best
+score before the channel beam, in every step: the CI phones' best senone
+scores relative to the frame's best, maxed over the next W frames (the
+padding repeats the last row), times `pl_weight`.  A stream then holds
+back W frames and scores each chunk on CHUNK + W frames; its flush pads
+by repeating the last frame.  (The reference turns its batched fast path
+off for pl_window and nlextree > 1; the port has one path, which serves
+them.)
 
 What differs in form, not in result:
 
@@ -49,10 +61,8 @@ Lattices are built on the host from one utterance's tape
 (`_lattice_from_tape`) and rescored by the native runtime
 (`utils/native.py`).
 
-Not ported yet (they raise NotImplementedError): more than one lexicon
-tree copy (`nlextree > 1`, ROADMAP A10b) and the phone-loop lookahead
-`pl_window` (A12).  `maxbatch` is accepted and has no effect: chunking a
-batch was a workaround for TPU compiler crashes.
+`maxbatch` is accepted and has no effect: chunking a batch was a
+workaround for TPU compiler crashes.
 """
 
 from __future__ import annotations
@@ -88,7 +98,8 @@ NGRAM_ARGS = [
     Arg("wbeam", float, 7e-29, "Beam width applied to word exits"),
     Arg("maxwpf", int, 32, "Maximum distinct word exits recorded per frame"),
     Arg("pl_window", int, 0,
-        "Phone-loop lookahead window in frames (0 = off; not ported yet)"),
+        "Phone-loop lookahead window in frames (0 = off): the CI-phone "
+        "loop evaluated over the next pl_window frames tightens the beam"),
     Arg("pl_weight", float, 3.0, "Weight on phone-loop lookahead penalties"),
     Arg("rcmode", str, "auto",
         "Cross-word right-context handling: 'fanout' (exact per-context "
@@ -109,8 +120,8 @@ NGRAM_ARGS = [
         "the roots (cancelled exactly at the exit readout), 'ug' keeps the "
         "static unigram smear only"),
     Arg("nlextree", int, 1,
-        "Number of lexicon-tree copies (tree lexicon only; only 1 is "
-        "ported yet)"),
+        "Number of lexicon-tree copies (tree lexicon only): copy n holds "
+        "the n-th best history-distinct cross-word entry"),
     Arg("maxbatch", int, 16,
         "Largest utterance batch decoded as one program in the reference; "
         "no effect here"),
@@ -137,6 +148,17 @@ EXPAND_BLOCK_BYTES = 192 << 20
 def _f32(x: float) -> float:
     """A Python float rounded to float32, as the reference's jnp.float32."""
     return float(np.float32(x))
+
+
+def _argmax_first(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the maximum along `dim`, the lowest on ties
+    (`jnp.argmax`'s rule), on any device."""
+    m = x.amax(dim, keepdim=True)
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=x.device).view(shape)
+    return torch.where(x == m, idx, n).amin(dim)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -230,10 +252,8 @@ class NgramSearch(nn.Module):
         self.prune = bool(cfg["prune"])
         self.log_beam = _f32(math.log(float(cfg["beam"])))
         self.log_wbeam = _f32(math.log(float(cfg["wbeam"])))
-        if int(cfg["pl_window"]):
-            raise NotImplementedError(
-                "pl_window (phone-loop lookahead) is not ported yet "
-                "(ROADMAP A12)")
+        self.pl_window = int(cfg["pl_window"])
+        self.pl_weight = float(cfg["pl_weight"])
 
         self.lm = lm
         self.dict = d
@@ -263,10 +283,7 @@ class NgramSearch(nn.Module):
                                           lc_mode=lc_mode, lex_mode=lex_mode,
                                           ug_lookahead=ugla)
         self._tree = g.lex_mode == "tree"
-        if self._tree and int(cfg["nlextree"]) > 1:
-            raise NotImplementedError(
-                "nlextree > 1 (parallel lexicon-tree copies) is not ported "
-                "yet (ROADMAP A10b)")
+        self.nlextree = max(1, int(cfg["nlextree"])) if self._tree else 1
         # Static senones (composite left contexts): the frame-block
         # expansion, and a pure shift for within-word propagation when
         # every chain channel's predecessor is the previous channel.
@@ -325,6 +342,12 @@ class NgramSearch(nn.Module):
         buf("_firstci", g.firstci)
         buf("_rssid_sil", g.rssid[:, self.sil_ci])                # [W]
         buf("_has_prev", g.prev_chan >= 0)
+        buf("_ci_of", g.ci_of)
+        # Phone-loop lookahead: each CI phone's senone row.
+        ci_sen = mdef.sseq[mdef.phone_ssid[: mdef.n_ciphone]].astype(np.int64)
+        bad = int(np.int32(np.uint16(0xFFFF)))
+        buf("_ci_sen", np.where(ci_sen == bad, 0, ci_sen))
+        buf("_ci_sen_valid", ci_sen != bad)
         buf("_prev_chan_c", np.maximum(g.prev_chan, 0))
         buf("_lmwid", v.lmwid)
         buf("_lmwid_c", np.maximum(v.lmwid, 0))
@@ -527,16 +550,39 @@ class NgramSearch(nn.Module):
         return self.dlm.score_tg(h1[..., None], h2[..., None], self._lmwid_c,
                                  lanes=E * W)
 
-    def _prune(self, alpha, ex):
+    def _prune(self, alpha, ex, la_t=None):
         """Channel beam and word-exit beam relative to each utterance's
-        frame best (prune_channels / save_bp thresholds)."""
+        frame best (prune_channels / save_bp thresholds); alpha [B, ..., C,
+        S] (a leading copy axis for the tree copies), ex [B, ..., C].  With
+        the phone-loop lookahead la_t [B, n_ci], a channel's best score
+        takes its phone's lookahead before the beam."""
         if not self.prune:
             return alpha, ex
-        bestscr = alpha.amax(dim=(1, 2))                          # [B]
-        keep = alpha.amax(2) > (bestscr + self.log_beam)[:, None]
+        lead = (1,) * (alpha.dim() - 2)
+        bestscr = alpha.flatten(1).amax(1).view(-1, *lead)        # [B, 1..]
+        cmax = alpha.amax(-1)                                     # [B, .., C]
+        if la_t is not None:
+            cmax = cmax + la_t[:, self._ci_of].view(
+                la_t.shape[0], *lead[1:], -1)
+        keep = cmax > bestscr + self.log_beam
         alpha = torch.where(keep[..., None], alpha, NEG_INF)
-        ex = torch.where(ex > (bestscr + self.log_wbeam)[:, None], ex, NEG_INF)
+        ex = torch.where(ex > bestscr + self.log_wbeam, ex, NEG_INF)
         return alpha, ex
+
+    def _lookahead(self, scores: torch.Tensor, n: int) -> torch.Tensor:
+        """The phone-loop lookahead of the first n frames of scores [B, F,
+        n_sen] (F >= n): each CI phone's best senone score relative to the
+        frame's best, maxed over the frame and the next pl_window - 1 (rows
+        past F repeat the last), times pl_weight -> [B, n, n_ci]."""
+        cis = torch.where(self._ci_sen_valid, scores[..., self._ci_sen],
+                          NEG_INF).amax(-1)                       # [B, F, n_ci]
+        rel = cis - cis.amax(-1, keepdim=True)
+        F = rel.shape[1]
+        last = rel[:, -1:]
+        shifts = [torch.cat([rel[:, dt: dt + n],
+                             last.expand(-1, max(0, dt + n - F), -1)], 1)
+                  for dt in range(self.pl_window)]
+        return _f32(self.pl_weight) * torch.stack(shifts).amax(0)
 
     @staticmethod
     def _write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc) -> None:
@@ -583,7 +629,7 @@ class NgramSearch(nn.Module):
         return tuple(a[None].expand(B, C, S).contiguous()
                      for a in (alpha,) + pays)
 
-    def _step_mpx(self, hmmc, scores_t, t: int, valid_t, tape):
+    def _step_mpx(self, hmmc, scores_t, t: int, valid_t, tape, la_t=None):
         """One frame of the mpx core for the whole batch.  Writes the
         frame's tape row into `tape` and returns the new carry."""
         alpha0, hist0, xsr0, hw20, hw10 = hmmc
@@ -596,7 +642,7 @@ class NgramSearch(nn.Module):
         sen_c = torch.gather(self._xs_rows(scores_t), 1, xsr0)   # [B, C, S]
         alpha, (hist, xsr, hw2, hw1), ex, (exh, _, exh2, exh1) = hmm_step(
             alpha0, (hist0, xsr0, hw20, hw10), sen_c, self._bands())
-        alpha, ex = self._prune(alpha, ex)
+        alpha, ex = self._prune(alpha, ex, la_t)
 
         # ---- word exits: per-variant readout [B, W, Vr] ----
         exv = torch.where(self._exit_valid, ex[:, self._exit_tab_c], neg)
@@ -676,26 +722,35 @@ class NgramSearch(nn.Module):
         [B, C, S], history side-table [B, Tpad*E, 2]) and, for the tree
         with bigram lookahead, the entry-correction side-table [B, Tpad*R].
         The static payload is the tape slot (-1 = the initial (<s>, -1)
-        history); the tree's is an 8-bit entry age (255 = initial)."""
+        history); the tree's is an 8-bit entry age (255 = initial).  N > 1
+        tree copies (`nlextree`) ride an axis after the batch, alpha and
+        payload [B, N, C, S], with the tape slot as their payload and the
+        corrections [B, Tpad*N*R], row (t*N + n)*R."""
         g = self.graph
         C, S = g.n_chan, g.n_emit_state
+        N = self.nlextree
         dev = self.device
         alpha = torch.full((C, S), NEG_INF, dtype=torch.float32, device=dev)
         alpha, _ = hmm_enter(alpha, (), self._entc0, ())
+        shape = (B, C, S) if N == 1 else (B, N, C, S)
+        if N > 1:
+            # Copy 0 holds the initial entries; the others start empty.
+            alpha = torch.cat([alpha[None], alpha.new_full((N - 1, C, S),
+                                                           NEG_INF)])
         # Every token, entered or not, starts from the initial history.
-        hist = (torch.full((B, C, S), 255, dtype=torch.uint8, device=dev)
-                if self._tree else
-                torch.full((B, C, S), -1, dtype=torch.int64, device=dev))
-        carry = (alpha.expand(B, C, S).contiguous(), hist,
+        hist = (torch.full(shape, 255, dtype=torch.uint8, device=dev)
+                if self._tree and N == 1 else
+                torch.full(shape, -1, dtype=torch.int64, device=dev))
+        carry = (alpha.expand(shape).contiguous(), hist,
                  torch.full((B, Tpad * self.E, 2), -1, dtype=torch.int64,
                             device=dev))
         if self._tree:
             R = self._n_roots if self.use_bgla else 1
-            carry += (torch.zeros((B, Tpad * R), dtype=torch.float32,
+            carry += (torch.zeros((B, Tpad * N * R), dtype=torch.float32,
                                   device=dev),)
         return carry
 
-    def _step_static(self, carry, sen_t, t: int, valid_t, tape):
+    def _step_static(self, carry, sen_t, t: int, valid_t, tape, la_t=None):
         """One frame of the static core (composite lc, flat lexicon): the
         reference's `_make_core_static` (any n_rcvar) and
         `_make_core_static_batched` (n_rcvar == 1) in one step."""
@@ -705,7 +760,7 @@ class NgramSearch(nn.Module):
         neg = NEG_INF
         alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist0,), sen_t,
                                                self._bands())
-        alpha, ex = self._prune(alpha, ex)
+        alpha, ex = self._prune(alpha, ex, la_t)
 
         # ---- word exits ----
         if Vr == 1:
@@ -751,44 +806,38 @@ class NgramSearch(nn.Module):
         return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
                 ht)
 
-    def _step_tree(self, carry, sen_t, t: int, valid_t, tape):
-        """One frame of the prefix-tree core with one tree copy: the
-        reference's `_make_core_tree` (N = 1) and `_make_core_tree_batched`
-        in one step.  Tokens carry an 8-bit entry age (255 = the initial
-        <s> entry; the increment saturates at 254 + 1); the re-entry always
-        takes the frame's slot 0, so a token's tape slot is (t - age)*E."""
-        alpha0, hist0, ht, ct = carry
-        B = alpha0.shape[0]
+    def _tree_exits(self, t: int, valid_t, tape, wex, wbp, ht, ct,
+                    nsel=None):
+        """The tree steps' exit readout, from each word's best exit `wex`
+        [B, W] and its token's payload `wbp`: the shortlist on the smeared
+        score, the exact trigram in place of the smeared unigram, the bigram
+        correction the token received at entry cancelled, the top E to the
+        tape and the history side-table.  One copy (`nsel` None): the
+        payload is the entry age; N copies: the tape slot, and `nsel` [B, W]
+        the copy each exit came from (the reference's `use_age = N == 1`).
+        Returns the slots' (vals, ok, h2, h1) [B, E]."""
         E, W = self.E, self.vocab.n_word
         R = self._n_roots
         E2 = min(4 * E, W)
         neg = NEG_INF
-        g = self.graph
-        hist_in = hist0.clamp_max(254) + 1
-        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist_in,), sen_t,
-                                               self._bands())
-        alpha, ex = self._prune(alpha, ex)
-
-        # ---- exit shortlist on the smeared score ----
-        xb = g.exit_base
-        if xb >= 0:
-            wex, wbp = ex[:, xb: xb + W], exh[:, xb: xb + W]      # [B, W]
-        else:
-            wex, wbp = ex[:, self._exit_col], exh[:, self._exit_col]
         v2, wsel2 = topk2(wex + self._psel_bonus, E2)             # [B, E2]
         okp = (v2 > neg * 0.5) & valid_t[:, None]
-        age2 = torch.gather(wbp, 1, wsel2).long()
-        pe2 = torch.where(age2 >= 255, -1, (t - age2) * E)
+        p2 = torch.gather(wbp, 1, wsel2)
+        if nsel is None:
+            p2 = p2.long()
+            pe2 = torch.where(p2 >= 255, -1, (t - p2) * E)
+        else:
+            pe2 = p2
         ph2, ph1 = self._read_hist(ht, pe2)
         wl2 = self._lmwid[wsel2]
         fil2 = self._is_filler[wsel2]
-        # Exact trigram for the shortlist, replacing the smeared unigram.
         own = self.dlm.score_tg(ph1, ph2, wl2.clamp_min(0), lanes=E2)
         if self.use_bgla:
-            # The bigram correction this token received at entry, exactly.
             rw2 = self._root_of_word[wsel2]                       # [B, E2]
-            te2 = pe2.clamp_min(0) // E
-            cu = torch.gather(ct, 1, te2 * R + rw2)
+            row = pe2.clamp_min(0) // E
+            if nsel is not None:
+                row = row * self.nlextree + torch.gather(nsel, 1, wsel2)
+            cu = torch.gather(ct, 1, row * R + rw2)
             cu = torch.where(pe2 < 0, self._corr0[rw2], cu)
         else:
             cu = 0.0
@@ -809,6 +858,31 @@ class NgramSearch(nn.Module):
         h1 = torch.where(fil, prev_h1, prev_h2)
         self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, vals[..., None])
         self._record_hist(ht, t, E, valid_t, h2, h1)
+        return vals, ok, h2, h1
+
+    def _exit_cols(self, ex, exh):
+        """Every word's exit channel of ex/exh [..., C] -> [..., W]."""
+        xb, W = self.graph.exit_base, self.vocab.n_word
+        if xb >= 0:
+            return ex[..., xb: xb + W], exh[..., xb: xb + W]
+        return ex[..., self._exit_col], exh[..., self._exit_col]
+
+    def _step_tree(self, carry, sen_t, t: int, valid_t, tape, la_t=None):
+        """One frame of the prefix-tree core with one tree copy: the
+        reference's `_make_core_tree` (N = 1) and `_make_core_tree_batched`
+        in one step.  Tokens carry an 8-bit entry age (255 = the initial
+        <s> entry; the increment saturates at 254 + 1); the re-entry always
+        takes the frame's slot 0, so a token's tape slot is (t - age)*E."""
+        alpha0, hist0, ht, ct = carry
+        R = self._n_roots
+        neg = NEG_INF
+        hist_in = hist0.clamp_max(254) + 1
+        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist_in,), sen_t,
+                                               self._bands())
+        alpha, ex = self._prune(alpha, ex, la_t)
+        wex, wbp = self._exit_cols(ex, exh)                       # [B, W]
+        vals, ok, h2, _ = self._tree_exits(t, valid_t, tape, wex, wbp, ht,
+                                           ct)
 
         # ---- single best re-entry, into every root ----
         ent = torch.where(ok[:, 0], vals[:, 0], neg)              # [B]
@@ -835,29 +909,99 @@ class NgramSearch(nn.Module):
         return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
                 ht, ct)
 
+    def _step_tree_copies(self, carry, sen_t, t: int, valid_t, tape,
+                          la_t=None):
+        """One frame of the tree core with N > 1 copies (the reference's
+        `_make_core_tree`, N > 1): the copies' exits merge per word (best
+        copy, first on ties), the shortlist and the tape are the one-copy
+        step's, and copy n re-enters from the n-th best tape slot whose
+        (h2, h1) history no earlier copy took.  Tokens carry their tape
+        slot (-1 = the initial history)."""
+        alpha0, hist0, ht, ct = carry
+        B, N = alpha0.shape[0], alpha0.shape[1]
+        E, R = self.E, self._n_roots
+        neg = NEG_INF
+        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist0,), sen_t[:, None],
+                                               self._bands())
+        alpha, ex = self._prune(alpha, ex, la_t)
+
+        # ---- exit readout: best copy per word ----
+        wexn, whn = self._exit_cols(ex, exh)                      # [B, N, W]
+        nsel = _argmax_first(wexn, 1)                            # [B, W]
+        wex = wexn.amax(1)
+        wbp = torch.gather(whn, 1, nsel[:, None])[:, 0]
+        vals, ok, h2, h1 = self._tree_exits(t, valid_t, tape, wex, wbp, ht,
+                                            ct, nsel)
+
+        # ---- re-entries: copy n takes the n-th history-distinct slot
+        # (vals are sorted, so the first available slot is the best) ----
+        ents, bps, hsels = [], [], []
+        chosen = torch.zeros_like(ok)
+        slots = torch.arange(E, device=ok.device)
+        for _ in range(N):
+            avail = ok & ~chosen
+            has = avail.any(1)
+            idx = torch.where(avail, slots, E).amin(1)
+            idx = torch.where(has, idx, 0)[:, None]
+            ents.append(torch.where(has, torch.gather(vals, 1, idx)[:, 0],
+                                    neg))
+            bps.append(torch.where(has, t * E + idx[:, 0], -1))
+            hh2 = torch.gather(h2, 1, idx)
+            hsels.append(torch.where(has, hh2[:, 0], -1))
+            chosen = chosen | ((h2 == hh2) & (h1 == torch.gather(h1, 1, idx)))
+        ent = torch.stack(ents, 1)                                # [B, N]
+        ent_bp = torch.stack(bps, 1)
+
+        # ---- within-word propagation with the telescoping smear ----
+        pc = self._prev_chan_c
+        prop = torch.where(self._has_prev,
+                           ex[..., pc] + self._pip32 + self._la_delta_c, neg)
+        bsh = torch.where(self._has_prev, exh[..., pc], -1)
+        entry_base = ent[..., None] + self._la_entry_c            # [B, N, C]
+        if self.use_bgla:
+            corr = self._bgla_rows(torch.stack(hsels, 1).reshape(-1))
+            corr = corr.view(B, N, R)
+            ct[:, t * N * R: (t + 1) * N * R] = torch.where(
+                valid_t[:, None], corr.reshape(B, N * R), 0.0)
+            entry_base[..., self._roots] += corr
+        ie = self._is_entry
+        alpha, (hist,) = hmm_enter(
+            alpha, (hist,), torch.where(ie, entry_base, prop),
+            (torch.where(ie, ent_bp[..., None], bsh),))
+        vm = valid_t[:, None, None, None]
+        return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
+                ht, ct)
+
     # ------------------------------------------------------------------
     def _scan(self, carry, scores: torch.Tensor, t0: int,
-              valid: torch.Tensor, tape):
+              valid: torch.Tensor, tape, la: Optional[torch.Tensor] = None):
         """Frames t0 .. t0+n-1 of the senone scores [B, n, n_sen] (valid
-        [B, n]) through the graph's frame step; writes their tape rows and
-        returns the carry.  The static and tree steps expand a block of
-        frames' senones at a time (the expansion is elementwise, so the
-        block changes no result)."""
+        [B, n]; the phone-loop lookahead la [B, n, n_ci] or None) through
+        the graph's frame step; writes their tape rows and returns the
+        carry.  The static and tree steps expand a block of frames'
+        senones at a time (the expansion is elementwise, so the block
+        changes no result)."""
         B, n = scores.shape[0], scores.shape[1]
+
+        def la_at(k):
+            return None if la is None else la[:, k]
+
         if not self._fast:
             for k in range(n):
                 carry = self._step_mpx(carry, scores[:, k], t0 + k,
-                                       valid[:, k], tape)
+                                       valid[:, k], tape, la_at(k))
             return carry
         g = self.graph
-        step = self._step_tree if self._tree else self._step_static
+        step = (self._step_static if not self._tree else
+                self._step_tree if self.nlextree == 1 else
+                self._step_tree_copies)
         per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
         KB = max(1, min(self.FRAME_BUCKET, EXPAND_BLOCK_BYTES // per_frame))
         for k0 in range(0, n, KB):
             sen = self._expand_block(scores[:, k0: k0 + KB])
             for k in range(sen.shape[0]):
                 carry = step(carry, sen[k], t0 + k0 + k, valid[:, k0 + k],
-                             tape)
+                             tape, la_at(k0 + k))
         return carry
 
     def device_decode(self, feats: torch.Tensor, valid: torch.Tensor):
@@ -869,13 +1013,14 @@ class NgramSearch(nn.Module):
         Vr = g.n_rcvar
         dev = self.device
         scores = self.scorer.score(feats)                         # [B, Tpad, n_sen]
+        la = self._lookahead(scores, Tpad) if self.pl_window else None
         tape = tuple(torch.empty((B, Tpad, E), dtype=dt, device=dev)
                      for dt in (torch.int32, torch.float32, torch.int32,
                                 torch.int32, torch.int32)) + (
             torch.empty((B, Tpad, E, Vr), dtype=torch.float32, device=dev),)
         carry = (self._init_static(B, Tpad) if self._fast
                  else self._init_hmmc(B))
-        self._scan(carry, scores, 0, valid, tape)
+        self._scan(carry, scores, 0, valid, tape, la)
         tw, tsc, tprev, th2, th1, trc = tape
         n = Tpad * E
         return (tw.view(B, n), tsc.view(B, n), tprev.view(B, n),
@@ -1068,42 +1213,56 @@ class NgramSearch(nn.Module):
 
     def _stream_chunk(self, state: dict, block: np.ndarray, take: int
                       ) -> None:
-        """Score CHUNK frames [CHUNK, D] of features (the first `take`
-        real, the rest padding that leaves the carry as it was) and run
-        them through the frame step.  The tape grows to hold the whole
-        chunk, padded rows included, which the step writes."""
+        """Score CHUNK + pl_window frames [CHUNK + W, D] of features (of
+        the first CHUNK, the first `take` real, the rest padding that
+        leaves the carry as it was; the last W only the lookahead's) and
+        run the first CHUNK through the frame step.  The tape grows to
+        hold the whole chunk, padded rows included, which the step
+        writes."""
         self._ensure_tape(state, self.CHUNK)
         x = torch.as_tensor(block[None]).to(self.device)
-        scores = self.scorer.score(x)                             # [1, CHUNK, S]
+        scores = self.scorer.score(x)                     # [1, CHUNK + W, S]
+        la = (self._lookahead(scores, self.CHUNK) if self.pl_window
+              else None)
         valid = (torch.arange(self.CHUNK, device=self.device) < take)[None]
-        state["carry"] = self._scan(state["carry"], scores, state["t"],
-                                    valid, state["tape"])
+        state["carry"] = self._scan(state["carry"], scores[:, : self.CHUNK],
+                                    state["t"], valid, state["tape"], la)
         state["t"] += take
 
     @torch.inference_mode()
     def stream_push(self, state: dict, feats: np.ndarray) -> dict:
         """Feed feature frames; whole CHUNKs are decoded on the device, the
-        remainder is buffered until the next push or stream_end."""
+        remainder is buffered until the next push or stream_end.  With
+        pl_window W, the last W frames are held back too, so that every
+        decoded frame sees its whole lookahead window."""
         feats = np.asarray(feats, np.float32)
+        W = self.pl_window
         pend = state["pending"]
         buf = feats if pend.size == 0 else np.concatenate([pend, feats])
-        k = buf.shape[0] // self.CHUNK
+        k = max(buf.shape[0] - W, 0) // self.CHUNK
         for i in range(k):
-            self._stream_chunk(state, buf[i * self.CHUNK: (i + 1) * self.CHUNK],
-                               self.CHUNK)
+            self._stream_chunk(
+                state, buf[i * self.CHUNK: (i + 1) * self.CHUNK + W],
+                self.CHUNK)
         state["pending"] = buf[k * self.CHUNK:]
         return state
 
     def _stream_flush(self, state: dict) -> int:
-        """Decode the buffered remainder, padded by repeating its last
-        frame and masked.  Returns the number of real frames decoded."""
+        """Decode the buffered remainder, padded by repeating its chunk's
+        last frame and masked (the reference's flush: a chunk's lookahead
+        takes the frames that follow it where there are any).  Returns the
+        number of real frames decoded."""
         pend = state["pending"]
+        need = self.CHUNK + self.pl_window
         while pend.shape[0]:
             take = min(pend.shape[0], self.CHUNK)
-            blk = np.repeat(pend[take - 1: take], self.CHUNK, axis=0)
+            rest = pend[take:]
+            blk = np.repeat(pend[take - 1: take], need, axis=0)
             blk[:take] = pend[:take]
+            avail = min(rest.shape[0], need - take)
+            blk[take: take + avail] = rest[:avail]
             self._stream_chunk(state, blk, take)
-            pend = pend[take:]
+            pend = rest
         state["pending"] = np.zeros((0, 0), np.float32)
         return state["t"]
 

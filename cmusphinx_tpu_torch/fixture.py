@@ -48,10 +48,20 @@ Sizes (`Size`):
 - `LARGE_5K`: LARGE cut to 5,000 words (15,000 sentences), where `auto`
   picks composite contexts on the flat lexicon.
 
+`build(..., ncep=26)` widens a continuous fixture's cepstra (26 instead
+of 13, so `1s_c_d_dd` gives D = 78): the wide-feature model that K1's
+depth loop serves.
+
+`grammar_jsgf(fx)` and `grammar_fsg(fx)` are the fixture's grammar, as
+JSGF text and as an `FsgModel`: its public rule accepts every transcript
+(a weighted alternative of the sentences) and also any sequence of the
+vocabulary's words (a word loop).
+
 `write_model_dir` writes a fixture as a model directory (mdef, means,
 variances, transition_matrices, sendump or mixture_weights, feat.params,
-noisedict) with an ARPA LM and a dictionary beside it, which the
-`Decoder` of either package loads by `hmm=`.
+noisedict) with an ARPA LM, a dictionary and the grammar (`grammar.jsgf`,
+`grammar.fsg`) beside it, which the `Decoder` of either package loads by
+`hmm=`.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from .frontend.feat import FEAT_ARGS, FeatPipeline
 from .lm.estimate import train_lm
 from .models.dict import Dictionary
 from .models.dict2pid import Dict2Pid
+from .models.fsg import FsgModel
 from .models.gauden import GaussianParams
 from .models.mdef import Mdef
 from .models.ngram import NgramModel
@@ -163,10 +174,14 @@ def _stream_slices(feat_params) -> List[np.ndarray]:
     return FeatPipeline(cfg, device="cpu").stream_slices()
 
 
-def build(seed: int = 0, model: str = "cont", size: Size = FULL) -> Fixture:
+def build(seed: int = 0, model: str = "cont", size: Size = FULL,
+          ncep: int = NCEP) -> Fixture:
     if model not in _ACOUSTIC:
         raise ValueError(f"model must be one of {sorted(_ACOUSTIC)}, "
                          f"got {model!r}")
+    if ncep != NCEP and model != "cont":
+        raise ValueError("only the continuous fixture takes other cepstra "
+                         "than 13")
     rng = np.random.RandomState(seed)
     phones = CMU_PHONES[: size.n_phone]
     ci_names = phones + ["SIL"]
@@ -255,7 +270,8 @@ def build(seed: int = 0, model: str = "cont", size: Size = FULL) -> Fixture:
                               n_tmat=n_ci, n_state=N_STATE)
 
     # ---- acoustic model and audio ----
-    am = _ACOUSTIC[model](rng, size, mdef)
+    am = (_continuous(rng, size, mdef, ncep) if model == "cont"
+          else _ACOUSTIC[model](rng, size, mdef))
     d2p = Dict2Pid(mdef, d)
     wid = {w: d.wordid(w) for w in words}
     ceps, transcripts = [], []
@@ -282,7 +298,7 @@ def build(seed: int = 0, model: str = "cont", size: Size = FULL) -> Fixture:
     return Fixture(size=size, model=model, mdef=mdef, dict=d, tmat=tmat,
                    gauden=am.gauden, ln_mixw=am.ln_mixw, lm=lm, ceps=ceps,
                    transcripts=transcripts,
-                   feat_params=dict(FEAT_PARAMS[model]),
+                   feat_params={**FEAT_PARAMS[model], "ceplen": ncep},
                    sendump_bits=am.sendump_bits)
 
 
@@ -325,22 +341,23 @@ def _ln_weights(w: np.ndarray) -> np.ndarray:
     return np.log(w).astype(np.float32)
 
 
-def _continuous(rng, size: Size, mdef: Mdef) -> _Acoustic:
-    """One codebook of K Gaussians per senone over the 39-dim features."""
-    S, K, D = size.n_sen, size.n_density, 3 * NCEP
-    center = rng.normal(0.0, 1.5, (S, NCEP))
+def _continuous(rng, size: Size, mdef: Mdef, ncep: int = NCEP) -> _Acoustic:
+    """One codebook of K Gaussians per senone over the 3 * ncep-dim
+    features (39 at the default 13 cepstra)."""
+    S, K, D = size.n_sen, size.n_density, 3 * ncep
+    center = rng.normal(0.0, 1.5, (S, ncep))
     means = np.empty((S, 1, K, D), np.float32)
-    means[:, 0, :, :NCEP] = center[:, None, :] + rng.normal(0, 0.3, (S, K, NCEP))
-    means[:, 0, :, NCEP:] = rng.normal(0.0, 0.1, (S, K, 2 * NCEP))
+    means[:, 0, :, :ncep] = center[:, None, :] + rng.normal(0, 0.3, (S, K, ncep))
+    means[:, 0, :, ncep:] = rng.normal(0.0, 0.1, (S, K, 2 * ncep))
     var = np.empty((S, 1, K, D), np.float32)
-    var[..., :NCEP] = rng.uniform(0.2, 0.6, (S, 1, K, NCEP))
-    var[..., NCEP:2 * NCEP] = rng.uniform(1.0, 3.0, (S, 1, K, NCEP))
-    var[..., 2 * NCEP:] = rng.uniform(2.0, 6.0, (S, 1, K, NCEP))
+    var[..., :ncep] = rng.uniform(0.2, 0.6, (S, 1, K, ncep))
+    var[..., ncep:2 * ncep] = rng.uniform(1.0, 3.0, (S, 1, K, ncep))
+    var[..., 2 * ncep:] = rng.uniform(2.0, 6.0, (S, 1, K, ncep))
     mixw = rng.dirichlet(np.full(K, 2.0), size=S)
 
     def emit(rng, s, n):
         k = rng.choice(K, size=n, p=mixw[s])
-        return means[s, 0, k, :NCEP] + rng.normal(0.0, 0.25, (n, NCEP))
+        return means[s, 0, k, :ncep] + rng.normal(0.0, 0.25, (n, ncep))
 
     return _Acoustic(_gaussians(means, var, [D]), _ln_weights(mixw), emit)
 
@@ -495,7 +512,64 @@ def write_model_dir(fx: Fixture, path: str, kind: Optional[str] = None
             if not fx.dict.is_filler(w):
                 phones = " ".join(fx.mdef.ciname[p] for p in fx.dict.pron[w])
                 fh.write(f"{fx.dict.word_str(w)} {phones}\n")
+    with open(os.path.join(path, "grammar.jsgf"), "w") as fh:
+        fh.write(grammar_jsgf(fx))
+    with open(os.path.join(path, "grammar.fsg"), "w") as fh:
+        grammar_fsg(fx).write(fh)
     return {"hmm": hmm, "lm": lm, "dict": dic}
+
+
+# ----------------------------------------------------------------------
+# The fixture's grammar: a weighted alternative of its transcripts (0.9)
+# and a loop over its whole vocabulary (0.1).
+
+SENT_WEIGHT, LOOP_WEIGHT = 0.9, 0.1
+
+
+def grammar_parts(fx: Fixture) -> Tuple[List[List[str]], List[str]]:
+    """The distinct transcripts, in order, and the vocabulary (the
+    dictionary's non-filler words)."""
+    sents: List[List[str]] = []
+    for t in fx.transcripts:
+        if t not in sents:
+            sents.append(list(t))
+    vocab = [fx.dict.word_str(w) for w in range(fx.dict.n_word)
+             if not fx.dict.is_filler(w)]
+    return sents, vocab
+
+
+def grammar_jsgf(fx: Fixture) -> str:
+    """The grammar as JSGF: public <utt> = /0.9/ <sent> | /0.1/ <word>+."""
+    sents, vocab = grammar_parts(fx)
+    return ("#JSGF V1.0;\ngrammar fixture;\n\n"
+            f"public <utt> = /{SENT_WEIGHT}/ <sent> | /{LOOP_WEIGHT}/ <word>+;\n"
+            "<sent> = " + " | ".join(" ".join(s) for s in sents) + ";\n"
+            "<word> = " + " | ".join(vocab) + ";\n")
+
+
+def grammar_fsg(fx: Fixture) -> FsgModel:
+    """The grammar as a compact FSG: state 0 starts, 1 is final; each
+    transcript is a chain from 0 to 1 (0.9 shared among them); the loop
+    enters state 2 (0.1), every word goes 2 -> 3, and 3 returns to 2 or
+    ends (0.5 each)."""
+    sents, vocab = grammar_parts(fx)
+    fsg = FsgModel(name="fixture", start_state=0, final_state=1)
+    n = 4
+    for sent in sents:
+        lp = math.log(SENT_WEIGHT / len(sents))
+        cur = 0
+        for i, w in enumerate(sent):
+            nxt = 1 if i == len(sent) - 1 else n
+            n += nxt == n
+            fsg.add_link(cur, nxt, lp if i == 0 else 0.0, w)
+            cur = nxt
+    fsg.add_link(0, 2, math.log(LOOP_WEIGHT), None)
+    for w in vocab:
+        fsg.add_link(2, 3, -math.log(len(vocab)), w)
+    fsg.add_link(3, 2, math.log(0.5), None)
+    fsg.add_link(3, 1, math.log(0.5), None)
+    fsg.n_state = n
+    return fsg
 
 
 def synthetic_pcm(seed: int, seconds: float = 2.0, sr: int = 16000

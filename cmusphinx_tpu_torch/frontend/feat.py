@@ -27,6 +27,15 @@ past 800 frames and at the end of an utterance) and AGC on c0 (emax: the
 mean of past utterances' maxima, halved in weight at 8 utterances).  Its
 state carries across utterances.  It runs on the host in numpy, as the
 reference's does, and so gives the reference's values exactly.
+
+The batch path with prior CMN subtracts the configured `cmninit`, never
+the live mean (a deliberate divergence, ROADMAP C1).  The reference
+subtracts the live mean as it was when its jitted kernel for the frame
+bucket was first traced: the same call on the same state gives either
+answer, depending on which bucket a live utterance preceded.  The two
+agree wherever the reference is deterministic (a fresh pipeline; a bucket
+traced before any live call); tests/test_torch_feat.py holds both cases
+and pins the port's value on the other.
 """
 
 from __future__ import annotations

@@ -16,8 +16,11 @@ density, in senone tiles laid out as the kernel's shared memory holds them,
 each operand split into the parts its precision mode multiplies (tf32 or
 bf16 hi and lo), K padded to a power of two with pad densities of const
 -1e30, S padded to whole tiles (see the note in the CUDA source).  The
-kernel takes D <= `MAX_D`; wider features are scored by the plain version
-only (`ContinuousScorer(..., kernel=False)`).
+kernel takes any D: up to D = 64 one instantiation a depth reads each tile
+whole; past it, a depth loop reads each tile in chunks of `CHUNK_DP`
+depth elements, and `pack_params` lays the tiles out chunk by chunk.  Both
+read x [T, D] and stage A = [x | x^2] themselves; `plan` reports the depth
+loop's geometry.
 
 The kernel is compiled with nvcc for sm_90a at first use into `build/` at
 the repository root (git-ignored), named by a hash of its source, and
@@ -44,16 +47,19 @@ _MODE = {"highest": 0, "high": 1, "bf16": 2}
 TILE_N = {"highest": 64, "high": 128, "bf16": 128}
 # Const of the pad densities: exp() of it is 0 (pallas_gmm._PAD_CONST).
 PAD_CONST = -1e30
-# The widest feature vector K1 takes: its depth 2D, rounded up to 16, is at
-# most 128, the widest the kernel instantiates (A and one ring stage of B
-# fill the shared memory there in "highest" and "high").
-MAX_D = 64
+# Depths up to NARROW_DP (D <= 64) have one instantiation each and read a
+# tile whole; past it the kernel loops over chunks of CHUNK_DP elements.
+NARROW_DP = 128
+CHUNK_DP = 32
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_gmm.cu"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# The source's units: one a precision mode (its kernels), and the C entry
+# points; compiled in parallel, then linked into one library.
+UNITS = [[f"-DK1_MODE={m}"] for m in range(len(PRECISIONS))] + [[]]
 
 # Frames per chunk of the plain version are chosen so one chunk's [rows,
 # S*K] density matrix stays near this many bytes.  Chunking bounds memory
@@ -72,9 +78,26 @@ def nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                          + repr(UNITS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"libfused_gmm-{digest}.so"
+
+
+def _compile(units, workdir: str) -> tuple:
+    """Compile the source's units into objects in `workdir`, all nvcc
+    processes at once: (object paths, the compiler's report)."""
+    objs = [os.path.join(workdir, f"unit{i}.o") for i in range(len(units))]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, *u, "-c", "-o", o,
+                               str(SOURCE)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for u, o in zip(units, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(u, log) for u, p, log in zip(units, procs, logs)
+              if p.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
+                           + "".join(f"{u}:\n{log}\n" for u, log in failed))
+    return objs, "".join(logs)
 
 
 def build() -> float:
@@ -87,19 +110,16 @@ def build() -> float:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                               check=True, capture_output=True, text=True)
-            so.with_suffix(".log").write_text(r.stdout + r.stderr)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objs, log = _compile(UNITS, work)
+            tmp = os.path.join(work, so.name)
+            r = subprocess.run([nvcc(), "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True)
+            if r.returncode:
+                raise RuntimeError(f"nvcc failed to link {SOURCE.name}:\n"
+                                   f"{r.stdout}\n{r.stderr}")
+            so.with_suffix(".log").write_text(log + r.stdout + r.stderr)
             os.replace(tmp, so)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                               f"{e.stdout}\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
         spent = time.perf_counter() - t0
     if _lib is None:
         lib = ctypes.CDLL(str(so))
@@ -107,6 +127,9 @@ def build() -> float:
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
             + [ctypes.c_void_p])
         lib.fused_gmm_launch.restype = ctypes.c_int
+        lib.fused_gmm_plan.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.fused_gmm_plan.restype = ctypes.c_int
         _lib = lib
     return spent
 
@@ -140,9 +163,10 @@ def split_parts(a: torch.Tensor, precision: str):
 class Packed:
     """K1's parameters for one precision mode: `tiles` [n_tiles,
     tile_bytes] uint8, each tile N densities (`n_tile`) of B = [lin |
-    -quad] over depth `dp`, every part in the wgmma core-matrix layout;
-    `const` [n_tiles * N] f32, their consts; `kp` densities a senone (a
-    power of two >= 8)."""
+    -quad] over depth `dp`, every part in the wgmma core-matrix layout
+    (past `NARROW_DP`, chunk by chunk: [dp / CHUNK_DP][parts][N x
+    CHUNK_DP]); `const` [n_tiles * N] f32, their consts; `kp` densities a
+    senone (a power of two >= 8)."""
     tiles: torch.Tensor
     const: torch.Tensor
     precision: str
@@ -164,18 +188,34 @@ def _core_layout(b: torch.Tensor, n: int) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(R // n, -1)
 
 
+def _chunk_layout(parts, n: int) -> torch.Tensor:
+    """Rows [R, Dp] of every operand part -> bytes [R/n, Dp/CHUNK_DP *
+    parts * n * CHUNK_DP * itemsize]: per block of n rows, chunk by chunk,
+    each chunk's parts in turn, each part [n/8][CHUNK_DP/epc] core
+    matrices (the depth loop's byte image of a stage)."""
+    R, dp = parts[0].shape
+    epc = 16 // parts[0].element_size()
+    t = torch.stack([p.reshape(R // n, n // 8, 8, dp // CHUNK_DP,
+                               CHUNK_DP // epc, epc).permute(0, 3, 1, 4, 2, 5)
+                     for p in parts], 2)
+    return t.contiguous().view(torch.uint8).reshape(R // n, -1)
+
+
+def depth(D: int) -> int:
+    """K1's depth for D features: 2D rounded up to 16, or past
+    NARROW_DP to whole chunks."""
+    dp = -(-2 * D // 16) * 16
+    return dp if dp <= NARROW_DP else -(-2 * D // CHUNK_DP) * CHUNK_DP
+
+
 def pack_params(lin: torch.Tensor, quad: torch.Tensor, const: torch.Tensor,
                 precision: str = "highest") -> Packed:
     """lin/quad [S, K, D] (f32, or bf16 in bf16 mode), const [S, K] f32 ->
     K1's packed senone tiles, on the parameters' device."""
     _check_params(lin, quad, const, precision)
     S, K, D = lin.shape
-    if D > MAX_D:
-        raise ValueError(f"K1 takes features of D <= {MAX_D}, got D={D}; "
-                         f"score this model with the plain version "
-                         f"(ContinuousScorer(..., kernel=False))")
     kp = max(8, 1 << (K - 1).bit_length())
-    dp = -(-2 * D // 16) * 16
+    dp = depth(D)
     n = TILE_N[precision]
     rows = -(-S * kp // n) * n
     b = lin.new_zeros((rows, dp), dtype=torch.float32)
@@ -184,9 +224,25 @@ def pack_params(lin: torch.Tensor, quad: torch.Tensor, const: torch.Tensor,
     bv[:, :K, D: 2 * D] = -quad.float()
     c = const.new_full((rows,), PAD_CONST, dtype=torch.float32)
     c[: S * kp].view(S, kp)[:, :K] = const
-    parts = [_core_layout(part, n) for part in split_parts(b, precision)]
-    return Packed(torch.cat(parts, 1).contiguous(), c, precision, S, K, D,
-                  kp, dp, n)
+    parts = split_parts(b, precision)
+    tiles = (torch.cat([_core_layout(p, n) for p in parts], 1).contiguous()
+             if dp <= NARROW_DP else _chunk_layout(parts, n))
+    return Packed(tiles, c, precision, S, K, D, kp, dp, n)
+
+
+def plan(precision: str, dp: int) -> tuple:
+    """The depth loop's geometry at depth dp > NARROW_DP, as the CUDA side
+    chooses it at launch (fused_gmm_plan): (frames a block, A staged chunk
+    by chunk rather than resident)."""
+    if _lib is None:
+        build()
+    wg, streamed = ctypes.c_int(0), ctypes.c_int(0)
+    err = _lib.fused_gmm_plan(_MODE[precision], dp, ctypes.byref(wg),
+                              ctypes.byref(streamed))
+    if err != 0:
+        raise RuntimeError(f"K1 has no geometry for depth {dp}: CUDA error "
+                           f"{err}")
+    return 64 * wg.value, bool(streamed.value)
 
 
 # ----------------------------------------------------------------------
@@ -313,13 +369,13 @@ def fused_mixture_scores(x: torch.Tensor, lin: torch.Tensor,
     if _lib is None:
         build()
     n_tiles, tile_bytes = packed.tiles.shape
+    kp_log = packed.kp.bit_length() - 1
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib.fused_gmm_launch(
             _MODE[precision], x.data_ptr(), packed.tiles.data_ptr(),
             packed.const.data_ptr(), out.data_ptr(), T, S, D, packed.dp,
-            packed.kp.bit_length() - 1, packed.n_tile, n_tiles, tile_bytes,
-            stream)
+            kp_log, packed.n_tile, n_tiles, tile_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 fused_gmm launch failed: CUDA error {err}")
     fused_mixture_scores.launches += 1

@@ -100,3 +100,45 @@ def test_compute_matches_reference(params):
     empty = tfp.compute(np.zeros((0, 13), np.float32))
     assert empty.shape == np.asarray(
         jfp.compute(np.zeros((0, 13), np.float32))).shape == (0, jfp.out_dim)
+
+
+def test_batch_prior_cmn_rule():
+    """ROADMAP C1: the batch path with prior CMN subtracts the configured
+    `cmninit`, whatever the live path has done since.  That is the
+    reference's answer wherever the reference is deterministic: a fresh
+    pipeline, and a frame bucket traced before any live call (its jitted
+    kernel keeps the mean it was traced with).  Where the reference's
+    answer depends on which bucket was traced first (a live utterance
+    before the first batch call of a bucket: it then takes the live mean),
+    the port keeps `cmninit`; its value there is pinned here."""
+    from cmusphinx_tpu.utils.config import Config as JaxConfig
+    from cmusphinx_tpu_torch.utils.config import Config as TConfig
+    from cmusphinx_tpu.frontend.feat import FEAT_ARGS as JAX_FEAT_ARGS
+    rng = np.random.RandomState(0)
+    live = (rng.randn(300, 13) * 2 + 20).astype(np.float32)
+    batch = (rng.randn(200, 13) * 2 + 20).astype(np.float32)
+    params = {"feat": "1s_c_d_dd", "cmn": "prior", "cmninit": "8.0"}
+
+    def pair():
+        return (JaxFeat(JaxConfig(JAX_FEAT_ARGS), **params),
+                FeatPipeline(TConfig(FEAT_ARGS), device="cpu", **params))
+
+    # A fresh pipeline, and a bucket traced before the live call.
+    j, t = pair()
+    fresh = t.compute(batch)
+    np.testing.assert_allclose(fresh, np.asarray(j.compute(batch)), rtol=0,
+                               atol=1e-5)
+    j.normalize_live(live, True)
+    t.normalize_live(live, True)
+    assert float(j._cmn_mean[0]) == float(t._cmn_mean[0]) != 8.0
+    np.testing.assert_allclose(t.compute(batch), np.asarray(j.compute(batch)),
+                               rtol=0, atol=1e-5)
+    # The live call first: the reference subtracts the live mean, the port
+    # still cmninit, as from a fresh pipeline.
+    j, t = pair()
+    j.normalize_live(live, True)
+    t.normalize_live(live, True)
+    got, ref = t.compute(batch), np.asarray(j.compute(batch))
+    np.testing.assert_array_equal(got, fresh)
+    assert abs(float(got[0, 0]) - 10.551) < 5e-3
+    assert abs(float(ref[0, 0]) - 6.101) < 5e-3

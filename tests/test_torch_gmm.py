@@ -320,9 +320,22 @@ SPLIT_BOUND = {"highest": 3 * 2.0 ** -22, "high": 3 * 2.0 ** -18,
                "bf16": 2.0 ** -8}
 
 
+def _unchunk(raw, n, dp, nparts, dt):
+    """Bytes [blocks, ...] of the depth loop's chunked layout (per block of
+    n rows: chunks of 32, each chunk's parts, each [n/8][32/epc] core
+    matrices) -> the parts [blocks * n, dp] in float64."""
+    from cmusphinx_tpu_torch.ops.fused_gmm import CHUNK_DP
+    nb = raw.shape[0]
+    epc = 16 // dt.itemsize
+    v = raw.contiguous().view(dt).reshape(nb, dp // CHUNK_DP, nparts, n // 8,
+                                          CHUNK_DP // epc, 8, epc)
+    return [v[:, :, i].permute(0, 2, 4, 1, 3, 5).reshape(nb * n, dp).double()
+            for i in range(nparts)]
+
+
 def _unpack(p):
     """Packed tiles -> the B parts [R, Dp] and const [R], in float64."""
-    from cmusphinx_tpu_torch.ops.fused_gmm import TILE_N
+    from cmusphinx_tpu_torch.ops.fused_gmm import NARROW_DP, TILE_N
     n, dp, nt = p.n_tile, p.dp, p.tiles.shape[0]
     assert n == TILE_N[p.precision]
     dt = torch.float32 if p.precision == "highest" else torch.bfloat16
@@ -330,7 +343,9 @@ def _unpack(p):
     epc, pb = 16 // es, n * dp * es
     nparts = 1 if p.precision == "bf16" else 2
     parts = []
-    for i in range(nparts):
+    if dp > NARROW_DP:
+        parts = _unchunk(p.tiles, n, dp, nparts, dt)
+    for i in range(nparts if dp <= NARROW_DP else 0):
         raw = p.tiles[:, i * pb: (i + 1) * pb].contiguous().view(dt)
         parts.append(raw.reshape(nt, n // 8, dp // epc, 8, epc)
                      .permute(0, 1, 3, 2, 4).reshape(nt * n, dp).double())
@@ -362,7 +377,8 @@ def _pack(g, lnw, mode):
 
 
 @pytest.mark.parametrize("S,K,D", [(37, 4, 13), (21, 1, 39), (11, 32, 39),
-                                   (9, 12, 51), (3, 256, 13)])
+                                   (9, 12, 51), (3, 256, 13), (13, 32, 78),
+                                   (5, 8, 150)])
 @pytest.mark.parametrize("mode", MODES)
 def test_pack_params_pads_and_matches_plain_version(mode, S, K, D):
     from cmusphinx_tpu_torch.ops.fused_gmm import PAD_CONST
@@ -370,7 +386,10 @@ def test_pack_params_pads_and_matches_plain_version(mode, S, K, D):
     g, lnw, x = _gauden(rng, S, K, D)
     sc, p = _pack(g, lnw, mode)
     kp = max(8, 1 << (K - 1).bit_length())
-    assert (p.kp, p.dp, p.S, p.K, p.D) == (kp, -(-2 * D // 16) * 16, S, K, D)
+    # Up to D = 64 the depth is 2D rounded to 16; past it, to whole chunks
+    # of 32 (the depth loop's).
+    dp = -(-2 * D // 16) * 16 if D <= 64 else -(-2 * D // 32) * 32
+    assert (p.kp, p.dp, p.S, p.K, p.D) == (kp, dp, S, K, D)
     assert p.tiles.dtype == torch.uint8 and p.tiles.is_contiguous()
     rows = p.tiles.shape[0] * p.n_tile
     assert S * kp <= rows < S * kp + p.n_tile
@@ -463,17 +482,39 @@ def test_scorer_packs_for_the_kernel_only_and_follows_its_buffers():
 
 
 def test_k1_takes_features_up_to_max_d():
-    from cmusphinx_tpu_torch.ops.fused_gmm import MAX_D, pack_params
+    """K1 has no widest depth any more: every D packs, the narrow
+    instantiations' depth up to D = 64, the depth loop's chunks past it."""
+    from cmusphinx_tpu_torch.ops import fused_gmm
     rng = np.random.RandomState(13)
-    for D in (MAX_D, MAX_D + 1):
+    assert not hasattr(fused_gmm, "MAX_D")
+    for D, dp in ((64, 128), (65, 160), (78, 160), (150, 320), (400, 800)):
         g, lnw, x = _gauden(rng, 5, 4, D)
         sc = ContinuousScorer(g, lnw, device="cpu")
-        # The plain version takes any width.
         assert sc.score(torch.as_tensor(x)).shape == (len(x), 5)
-        if D <= MAX_D:
-            assert sc.packed().dp == 2 * MAX_D
-            continue
-        with pytest.raises(ValueError, match=f"D <= {MAX_D}"):
-            sc.packed()
-        with pytest.raises(ValueError, match=f"D <= {MAX_D}"):
-            pack_params(sc.lin, sc.quad, sc.const)
+        p = sc.packed()
+        assert p.dp == dp == fused_gmm.depth(D)
+        assert p.tiles.shape[1] == (2 * 64 * dp * 4)      # highest: 2 tf32 parts
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("S,K,D", [(13, 32, 78), (5, 8, 150), (7, 256, 65)])
+def test_depth_loop_chunk_is_one_narrow_tile(mode, S, K, D):
+    """Past NARROW_DP each chunk of a packed tile is one ring stage: the
+    bytes of the narrow layout of that CHUNK_DP-deep slice of B, every part
+    in turn, so that one bulk copy brings it in."""
+    from cmusphinx_tpu_torch.ops.fused_gmm import (CHUNK_DP, _core_layout,
+                                                   split_parts)
+    rng = np.random.RandomState(S + K + D)
+    g, lnw, _ = _gauden(rng, S, K, D)
+    _, p = _pack(g, lnw, mode)
+    B, _ = _unpack(p)
+    dt = torch.float32 if mode == "highest" else torch.bfloat16
+    nch = p.dp // CHUNK_DP
+    chunk = p.tiles.shape[1] // nch
+    for c in range(nch):
+        want = torch.cat([_core_layout(b[:, c * CHUNK_DP: (c + 1) * CHUNK_DP]
+                                       .to(dt), p.n_tile) for b in B], 1)
+        assert torch.equal(p.tiles[:, c * chunk: (c + 1) * chunk], want)
+    # The parts are the mode's split of [lin | -quad]: re-splitting the hi
+    # part changes nothing.
+    assert torch.equal(split_parts(B[0].float(), mode)[0].double(), B[0])

@@ -1,10 +1,12 @@
 """The port's own copies of the host modules (model readers and writers,
-binary I/O, configuration, the LM estimator, the lexicon-graph builder)
+the grammar models, binary I/O, configuration, the LM estimator, the
+lexicon-graph builder)
 read and build exactly what the reference package's originals do, and no
 file of the port imports JAX or the reference package."""
 
 import ast
 import dataclasses
+import io
 import os
 import pathlib
 
@@ -13,9 +15,12 @@ import pytest
 
 from cmusphinx_tpu.decode import lexgraph as j_lexgraph
 from cmusphinx_tpu.lm import estimate as j_estimate
+from cmusphinx_tpu.models import cfg as j_cfg
 from cmusphinx_tpu.models import dict as j_dict
 from cmusphinx_tpu.models import dict2pid as j_dict2pid
+from cmusphinx_tpu.models import fsg as j_fsg
 from cmusphinx_tpu.models import gauden as j_gauden
+from cmusphinx_tpu.models import jsgf as j_jsgf
 from cmusphinx_tpu.models import lmset as j_lmset
 from cmusphinx_tpu.models import mdef as j_mdef
 from cmusphinx_tpu.models import mllr as j_mllr
@@ -29,9 +34,12 @@ from cmusphinx_tpu_torch.decode import lexgraph as t_lexgraph
 from cmusphinx_tpu_torch.decode.ngram_search import NgramVocab
 from cmusphinx_tpu_torch.frontend.feat import FEAT_ARGS
 from cmusphinx_tpu_torch.lm import estimate as t_estimate
+from cmusphinx_tpu_torch.models import cfg as t_cfg
 from cmusphinx_tpu_torch.models import dict as t_dict
 from cmusphinx_tpu_torch.models import dict2pid as t_dict2pid
+from cmusphinx_tpu_torch.models import fsg as t_fsg
 from cmusphinx_tpu_torch.models import gauden as t_gauden
+from cmusphinx_tpu_torch.models import jsgf as t_jsgf
 from cmusphinx_tpu_torch.models import lmset as t_lmset
 from cmusphinx_tpu_torch.models import mdef as t_mdef
 from cmusphinx_tpu_torch.models import mllr as t_mllr
@@ -166,22 +174,76 @@ def _read(case, mods, model_dirs, tmp):
         with s3.fh:
             head = (s3.hdr, s3.swap, s3.read_int32(4), s3.read_float32(8))
         return mods["bio"].read_mfc(path), head, open(path, "rb").read()
+    base = os.path.dirname(kw["lm"])
+    if case == "fsg":
+        fsg = mods["fsg"].FsgModel.read(os.path.join(base, "grammar.fsg"))
+        buf = io.StringIO()
+        fsg.write(buf)
+        fsg.add_silence("<sil>", -1, 0.005)
+        fsg.add_alt(fx.transcripts[0][0], "alt(2)")
+        return fsg, fsg.null_closure(), buf.getvalue(), fsg.accept(
+            fx.transcripts[1])
+    if case == "jsgf":
+        path = os.path.join(base, "grammar.jsgf")
+        gram = mods["jsgf"].JsgfGrammar.parse_file(path)
+        return (gram, gram.build_fsg(), mods["jsgf"].jsgf_read_file(path),
+                mods["jsgf"].JsgfGrammar.parse(_JSGF_RULES).build_fsg())
+    if case in ("cfg", "srgs"):
+        cfg_mod = mods["cfg"]
+        if case == "cfg":
+            path = os.path.join(tmp, f"g.{mods['tag']}.cfg")
+            with open(path, "w") as fh:
+                fh.write(_CFG_TEXT)
+            g = cfg_mod.Cfg.read_simple(path)
+        else:
+            g = cfg_mod.Cfg.parse_srgs(_SRGS_TEXT)
+        return (g, g.to_fsg(max_expansion=3),
+                cfg_mod.sample_sentences(g, 25, seed=4),
+                cfg_mod.cfg_to_ngram(g, n=2, samples=300, seed=1))
     raise AssertionError(case)
 
+
+# Grammars with recursion, repeats, optional items, weights and tags.
+_JSGF_RULES = """#JSGF V1.0;
+grammar cmd;
+public <cmd> = [please] <act> (<obj> | /2/ <num>+) [now] {done};
+<act> = /0.7/ open | close | go;
+<obj> = the <thing> | a <thing> <obj>;
+<thing> = door | window;
+<num> = one | two | three;
+"""
+_CFG_TEXT = """1.0 $START 1 $S
+0.6 $S 2 $A $S
+0.4 $S 1 $B
+0.5 $A 1 hello
+0.5 $A 2 hi there
+1.0 $B 1 world
+"""
+_SRGS_TEXT = """<?xml version="1.0"?>
+<grammar xmlns="http://www.w3.org/2001/06/grammar" version="1.0" root="r">
+  <rule id="r" scope="public">go <ruleref uri="#d"/>
+    <item repeat="1-3"><one-of><item weight="2">one</item><item>two</item>
+    </one-of></item><item repeat="0-1">meters</item></rule>
+  <rule id="d"><one-of><item>forward</item><item>back</item></one-of></rule>
+</grammar>
+"""
 
 _JAX = {"tag": "jax", "mdef": j_mdef, "dict": j_dict, "dict2pid": j_dict2pid,
         "tmat": j_tmat, "gauden": j_gauden, "sendump": j_sendump,
         "ngram": j_ngram, "lmset": j_lmset, "mllr": j_mllr,
-        "config": j_config, "bio": j_bio}
+        "config": j_config, "bio": j_bio, "fsg": j_fsg, "jsgf": j_jsgf,
+        "cfg": j_cfg}
 _PORT = {"tag": "port", "mdef": t_mdef, "dict": t_dict,
          "dict2pid": t_dict2pid, "tmat": t_tmat, "gauden": t_gauden,
          "sendump": t_sendump, "ngram": t_ngram, "lmset": t_lmset,
-         "mllr": t_mllr, "config": t_config, "bio": t_bio}
+         "mllr": t_mllr, "config": t_config, "bio": t_bio, "fsg": t_fsg,
+         "jsgf": t_jsgf, "cfg": t_cfg}
 
 
 @pytest.mark.parametrize("case", [
     "mdef", "dict", "dict2pid", "tmat", "gauden", "mixture_weights",
-    "sendump8", "sendump4", "ngram", "lmset", "mllr", "config", "bio"])
+    "sendump8", "sendump4", "ngram", "lmset", "mllr", "config", "bio",
+    "fsg", "jsgf", "cfg", "srgs"])
 def test_readers_match_reference(case, model_dirs, tmp_path):
     assert_same(_read(case, _JAX, model_dirs, str(tmp_path)),
                 _read(case, _PORT, model_dirs, str(tmp_path)))
@@ -243,7 +305,8 @@ def test_no_port_file_imports_jax_or_the_reference():
     assert {f"cmusphinx_tpu_torch/{m}.py" for m in (
         "decode/lattice", "frontend/source", "frontend/vad", "pipeline",
         "utils/log", "utils/profile", "utils/native", "cli/batch",
-        "cli/continuous")} <= names
+        "cli/continuous", "models/fsg", "models/jsgf", "models/cfg",
+        "decode/fsg_search", "decode/align", "decode/phone_loop")} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "cmusphinx_tpu")]

@@ -188,16 +188,34 @@ def test_decode_batch_and_decode_agree_with_batch_cep(decoded, fx, port):
     assert s.decode_batch_cep([], fp) == []
 
 
-def test_unported_options_raise(fx, port):
+@pytest.mark.parametrize("kw", [
+    {"pl_window": 5, "pl_weight": 2.0},
+    {"rcmode": "composite", "lcmode": "composite", "lexmode": "tree",
+     "nlextree": 2},
+    {"rcmode": "composite", "lcmode": "composite", "lexmode": "tree",
+     "nlextree": 3, "pl_window": 3}])
+def test_unported_options_raise(fx, port, kw):
+    """The options that raised before they were ported (`nlextree > 1`,
+    the N-copy tree; `pl_window`, the phone-loop lookahead) now decode
+    as the reference's do: tapes, chase arrays and hypotheses, batched
+    and one utterance."""
     s, fp = port
-    sc = s.scorer
-    with pytest.raises(NotImplementedError, match="A10b"):
-        NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device="cpu",
-                    rcmode="composite", lcmode="composite", lexmode="tree",
-                    nlextree=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device="cpu",
-                    pl_window=5)
+    js = JaxSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                   JaxScorer(fx.gauden, fx.ln_mixw, use_pallas=False), **kw)
+    ts = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, s.scorer,
+                     device="cpu", **kw)
+    assert ts.pl_window == js.pl_window and ts.nlextree == js.nlextree
+    if "pl_window" in kw:
+        # The lookahead is real: some phones fall far below the best.
+        la = ts._lookahead(ts.scorer.score(torch.as_tensor(
+            fp.compute(fx.ceps[0])))[None], 50)
+        assert la.shape == (1, 50, fx.mdef.n_ciphone) and (la < -1.0).any()
+    hyps, _ = assert_search_matches_reference(
+        fx, js, ts, JaxFeat(fx.feat_config()), fp)
+    # Three tree copies with the lookahead at this size insert words (in
+    # both packages alike); the others recognize every transcript.
+    if kw.get("nlextree") != 3:
+        assert [h.words for h in hyps] == fx.transcripts
     # Bestpath rescoring is ported (test_torch_lattice holds it to the
     # reference).
     assert [h.words for h in s.decode_batch_cep(fx.ceps, fp, bestpath=True)
@@ -245,3 +263,39 @@ def test_semicontinuous_slice_matches_reference(model):
             assert np.array_equal(a, b), _first_diff(a, b, E)
     assert [h.words for h in hyps] == [h.words for h in jhyps]
     assert [h.words for h in hyps] == fx.transcripts
+
+
+class _ScoresAsFeatures(torch.nn.Module):
+    """A scorer whose features are the senone scores themselves, so that
+    both packages' searches run on one set of scores."""
+
+    def score(self, feats):
+        return feats
+
+
+def test_lookahead_at_weight_3_on_the_full_fixture_matches_reference():
+    """`pl_window=5, pl_weight=3.0`, the setting `chip_smoke.py` runs on
+    the card, over the hub4-class fixture's own graph (`fixture.build(0)`:
+    S=5150, 300 words), both packages fed the same senone scores of its
+    first utterances (the port's plain scorer on the CPU): integer tapes
+    and hypotheses equal, float tapes within rtol 1e-5, as at weight 2.0 on
+    SMALL.  At this weight the lookahead prunes words of the transcripts
+    in both packages alike."""
+    fx = fixture.build(0)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    sc = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+    with torch.inference_mode():
+        scores = [sc.score(torch.as_tensor(np.asarray(fp.compute(c)))).numpy()
+                  for c in fx.ceps[:3]]
+    kw = {"pl_window": 5, "pl_weight": 3.0}
+    js = JaxSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, _ScoresAsFeatures(), **kw)
+    ts = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, _ScoresAsFeatures(),
+                     device="cpu", **kw)
+    jhyps = js.decode_batch(scores)
+    hyps = ts.decode_batch(scores)
+    assert_tapes_match([a.numpy() for a in ts._last_batch[0]],
+                       [np.asarray(a) for a in js._last_batch[0]], js.E)
+    assert_hyps_match(hyps, jhyps)
+    errs = [fixture.word_errors(r, h.words)
+            for r, h in zip(fx.transcripts, hyps)]
+    assert sum(errs) > 0, errs

@@ -135,3 +135,47 @@ def test_no_source_file_imports_jax():
     assert len(files) > 10
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
+
+
+_SEARCHES_WITHOUT_JAX = r"""
+import sys, tempfile
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["cmusphinx_tpu"] = None  # and any of the reference package
+import numpy as np
+from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch.api import Decoder
+from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
+from cmusphinx_tpu_torch.utils.bio import write_mfc
+fx = fixture.build(0, size=fixture.SMALL)
+ok = []
+with tempfile.TemporaryDirectory() as tmp:
+    kw = fixture.write_model_dir(fx, tmp)
+    write_mfc(tmp + "/u.mfc", fx.ceps[0])
+    for key in ("jsgf", "fsg"):
+        d = Decoder(device="cpu", hmm=kw["hmm"], dict=kw["dict"],
+                    **{key: tmp + "/grammar." + key})
+        h = d.decode_cep_file(tmp + "/u.mfc")
+        ok.append(h.words == fx.transcripts[0]
+                  == d.get_lattice().bestpath().words)
+        st = d.search.stream_start()
+        d.search.stream_push(st, d.fp.compute(fx.ceps[0]))
+        ok.append(d.search.stream_end(st).words == fx.transcripts[0])
+    d = Decoder(device="cpu", **kw)
+    ws, *_ = d.align(d.fp.compute(fx.ceps[0]), fx.transcripts[0])
+    ok.append([w.word for w in ws] == fx.transcripts[0])
+    a = Decoder(device="cpu", hmm=kw["hmm"], allphone="uniform", lw=3.0)
+    ok.append(len(a.decode_cep_file(tmp + "/u.mfc").words) > 0)
+    pl = PhoneLoopSearch(d.mdef, d.tmat, d.scorer, device="cpu")
+    ok.append(bool(pl.lookahead_mask(d.fp.compute(fx.ceps[0])).any(1).all()))
+assert not any(m.split(".")[0] in ("jax", "cmusphinx_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+print("SEARCHES", ok)
+"""
+
+
+def test_grammar_align_allphone_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _SEARCHES_WITHOUT_JAX], env=env,
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SEARCHES [True, True, True, True, True, True, True]" in r.stdout

@@ -77,6 +77,27 @@ def test_tree_search_matches_reference(medium, treela):
     assert (initial & ~ts.vocab.is_filler[np.maximum(tw, 0)]).sum() > 10
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_tree_copies_match_reference(medium, n):
+    """N tree copies (`nlextree`, `_step_tree_copies`): the batch and one
+    utterance against the reference's N-copy `_make_core_tree`, tapes,
+    chase arrays and hypotheses."""
+    fx = medium
+    kw = {"lexmode": "tree", "nlextree": n}
+    js = JaxSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                   JaxScorer(fx.gauden, fx.ln_mixw, use_pallas=False), **kw)
+    ts = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                     ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu"),
+                     device="cpu", **kw)
+    assert ts.nlextree == js.nlextree == n and ts.use_bgla
+    jfp, fp = JaxFeat(fx.feat_config()), FeatPipeline(fx.feat_config(),
+                                                      device="cpu")
+    hyps, (tw, *_) = assert_search_matches_reference(fx, js, ts, jfp, fp)
+    assert [h.words for h in hyps] == fx.transcripts
+    # The copies hold distinct histories: the carry has N of them.
+    assert ts._init_static(1, 100)[0].shape[1] == n
+
+
 def test_tree_decoder_matches_reference(medium, tmp_path):
     fx = medium
     kw = fixture.write_model_dir(fx, str(tmp_path))
