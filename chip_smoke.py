@@ -104,11 +104,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    nlextree=2 on the 20,000-word tree (4 utterances counted, K1 once, and
    held against the CPU search on the card's senone scores).
 19. cpu_holds: every CPU hold above, collected (`Holds`).
+20. train: the trainer (cmusphinx_tpu_torch.train) at the hub4-class
+   continuous width: 64 utterances of the fixture
+   (fixture.FULL with n_utt=64, features from FeatPipeline on the card), a
+   CI model over its 39 phones + SIL (3 states: 120 senones) at K=32,
+   D=39.  One forward-backward at the flat start with CUDA events around
+   its stages (forward, backward, accumulation), held against the same
+   pass on the CPU (each utterance's llh within rtol 1e-5, every
+   accumulator within bw.posterior_rtol); one pass under torch.profiler
+   (device events a frame step, the device's idle share); 3 EM steps
+   (history may not fall; ms a step, BW frames/s, peak MB); viterbi_align
+   at the final parameters held against the CPU's (states equal but for
+   near-ties scored in float64 within 1e-6); estimate_mllt (D=39) on the
+   alignment's senone labels held against the CPU's (row directions within
+   1e-3, objective within rtol 1e-5); the model exported (export_model)
+   beside the fixture's LM and dictionary and 16 utterances decoded by
+   Decoder(device="cuda"), K1 once an utterance, words equal to the CPU
+   Decoder's on the same directory, WER printed.
+21. train_pipeline: train_full_pipeline on the slice's 16 utterances to 32
+   Gaussians at its default iteration counts (CI, CD untied, tied by
+   agglomerative merging, then 5 splits), every stage's history not
+   falling; host seconds of tying apart from the seconds of EM; the
+   export_cd_model directory read back by Mdef, read_gauden and
+   TransitionMatrices.
+22. train_semicont: SemiContTrainer at hub4wsj_sc_8k's codebook width
+   (K=256) on the same 16 utterances: step 1 held against the CPU as in
+   20, 2 EM steps, ms a step, peak MB.
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: 1-3, 10, 15
-(K1), 16, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 6, 7, 13
-and 19.
+(K1), 16, 20-22, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5,
+6, 7, 13 and 19.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -117,7 +143,9 @@ Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import json
 import multiprocessing
 import os
@@ -139,6 +167,17 @@ from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
                                      SemiContinuousScorer, fused_gmm)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
+from cmusphinx_tpu_torch.models.gauden import read_gauden
+from cmusphinx_tpu_torch.models.mdef import Mdef
+from cmusphinx_tpu_torch.models.tmat import TransitionMatrices
+from cmusphinx_tpu_torch.train import bw, pipeline
+from cmusphinx_tpu_torch.train.model_io import export_model
+from cmusphinx_tpu_torch.train.semicont import SemiContTrainer
+from cmusphinx_tpu_torch.train.sentence_hmm import FlatModel
+from cmusphinx_tpu_torch.train.trainer import Trainer, device_params, host_acc
+from cmusphinx_tpu_torch.train.transform import (class_scatter_stats,
+                                                 estimate_mllt,
+                                                 mllt_objective)
 from cmusphinx_tpu_torch.utils import native
 from cmusphinx_tpu_torch.utils.bio import write_mfc
 
@@ -203,6 +242,23 @@ CEP_PIECE, RAW_PIECE_S = 25, 0.25
 # path (float64) on the same lattice: words equal, scores within the
 # tapes' float tolerance.
 LATTICE_RTOL = 1e-5
+# The training phases: the hub4-class continuous width (D=39, K=32) over
+# TRAIN_UTTS utterances of the fixture, TRAIN_STEPS EM steps, the first
+# TRAIN_DECODE_UTTS decoded by the exported model; the semi-continuous
+# trainer at hub4wsj_sc_8k's codebook width; the CD pipeline split to
+# PIPE_GAUSS Gaussians at its default iteration counts.
+TRAIN_UTTS, TRAIN_K, TRAIN_STEPS, TRAIN_DECODE_UTTS = 64, 32, 3, 16
+SEMI_TRAIN_K, SEMI_TRAIN_STEPS = 256, 2
+PIPE_GAUSS = 32
+# Card against CPU: each utterance's log-likelihood within rtol 1e-5; the
+# accumulators within bw.posterior_rtol (float32 rounding of the
+# log-domain recursion); a Viterbi path that differs a near-tie (both
+# paths within 1e-6 relative, scored in float64); MLLT's rows (unit
+# length: the objective ignores their scale) within 1e-3 and its
+# objective within rtol 1e-5.  A history may not fall by more than 1e-4
+# nats a frame (the reference's own EM test allows as much).
+LLH_RTOL, TIE_RTOL, MLLT_ATOL, MLLT_OBJ_RTOL, EM_SLACK = (
+    1e-5, 1e-6, 1e-3, 1e-5, 1e-4)
 
 
 # The host clock at the start of main: each phase's line carries the
@@ -907,12 +963,18 @@ class Holds:
             o["float_max_rel_diff"] = max(o["float_max_rel_diff"],
                                           r["float_max_rel_diff"])
             o["hyps_equal"] &= r["hyps_equal"]
+            # The training holds judge themselves (`ok`) and carry their
+            # measurements (`detail`).
+            if "ok" in r:
+                o["ok"] = o.get("ok", True) and r["ok"]
+                o.setdefault("detail", []).append(r["detail"])
         res = {"phase": "cpu_holds", "workers": HOLD_WORKERS,
                "threads": HOLD_THREADS, "wait_s": time.perf_counter() - t0,
                "holds": out}
         emit(res)
         bad = {k: v for k, v in out.items() if v["int_values_differing"]
-               or v["float_max_rel_diff"] > 1e-5 or not v["hyps_equal"]}
+               or v["float_max_rel_diff"] > 1e-5 or not v["hyps_equal"]
+               or not v.get("ok", True)}
         if bad:
             raise AssertionError(f"card and CPU decode differently: {bad}")
         return res
@@ -1526,6 +1588,360 @@ def phase_ngram_options(dev, fx, spec, large, large_spec, holds: Holds
     return out
 
 
+# ----------------------------------------------------------------------
+# The trainer.  Its CPU holds judge themselves: each returns `ok` and its
+# measurements (`detail`) in the `Holds` schema.
+
+def _train_verdict(ok: bool, detail: dict, t0: float, n: int) -> dict:
+    return {"utterances": n, "int_values_differing": 0,
+            "float_max_rel_diff": 0.0, "hyps_equal": True, "ok": bool(ok),
+            "detail": detail, "seconds": time.perf_counter() - t0}
+
+
+def _np_args(params, dtype=np.float32) -> tuple:
+    return tuple(np.asarray(a, dtype) for a in (
+        params.means, params.prec, params.lnw, params.log_tp))
+
+
+def acc_error(got: dict, want: dict) -> dict:
+    """Per accumulator, the least r with |got - want| <= r * (|want| +
+    max|want| / 10): what the holds compare with bw.posterior_rtol."""
+    out = {}
+    for k in ("mixw", "mean", "var", "tmat"):
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(want[k], np.float64)
+        out[k] = float(np.max(np.abs(g - w)
+                              / (np.abs(w) + 0.1 * np.abs(w).max())))
+    return out
+
+
+def hold_train_pass(batch, args, card_llh, card_acc) -> dict:
+    """A worker's hold of one forward-backward pass of the card: the same
+    pass on the CPU (the port, float32)."""
+    t0 = time.perf_counter()
+    llh, acc = bw.forward_backward(batch, *args, device="cpu")
+    llh, acc = llh.numpy(), host_acc(acc)
+    rtol = bw.posterior_rtol(llh, batch.feats.shape[1])
+    err = acc_error(card_acc, acc)
+    llh_rel = float(np.max(np.abs(card_llh - llh) / np.abs(llh)))
+    frames = int(card_acc["n_frames"]) == int(acc["n_frames"])
+    return _train_verdict(
+        llh_rel <= LLH_RTOL and max(err.values()) <= rtol and frames,
+        {"llh_max_rel_diff": llh_rel, "acc_rel_err": err,
+         "posterior_rtol": rtol, "n_frames_equal": frames,
+         "within_rtol_1e-4": max(err.values()) <= 1e-4}, t0, len(llh))
+
+
+def hold_train_viterbi(batch, args, card_scores, card_states) -> dict:
+    """A worker's hold of the card's forced alignment: the CPU's scores,
+    and every utterance whose path differs a near-tie (both paths scored
+    in float64 within TIE_RTOL)."""
+    t0 = time.perf_counter()
+    scores, states = bw.viterbi_align(batch, *args, device="cpu")
+    scores, states = scores.numpy(), states.numpy()
+    differ = np.flatnonzero((states != card_states).any(1))
+    tie_rel = []
+    if len(differ):
+        a64 = tuple(a.astype(np.float64) for a in args)
+        a = bw.alignment_scores(batch, *a64, card_states,
+                                device="cpu").numpy()
+        c = bw.alignment_scores(batch, *a64, states, device="cpu").numpy()
+        tie_rel = (np.abs(a - c) / np.abs(c))[differ].tolist()
+    rel = float(np.max(np.abs(card_scores - scores) / np.abs(scores)))
+    return _train_verdict(
+        rel <= LLH_RTOL and all(r <= TIE_RTOL for r in tie_rel),
+        {"score_max_rel_diff": rel, "utterances_differing": len(differ),
+         "frames_differing": int((states != card_states).sum()),
+         "near_tie_rel": tie_rel}, t0, len(scores))
+
+
+def _mllt_objective64(A, stats) -> float:
+    """MLLT's objective in float64 on the class stats, with the
+    covariances `estimate_mllt` forms."""
+    counts, sums, sqsums = stats
+    ok = counts > 0
+    mean = sums[ok] / counts[ok, None]
+    cov = (sqsums[ok] / counts[ok, None, None]
+           - np.einsum("ci,cj->cij", mean, mean)
+           + 1e-6 * np.eye(sums.shape[1])[None])
+    return float(mllt_objective(torch.as_tensor(A, dtype=torch.float64),
+                                torch.as_tensor(cov),
+                                torch.as_tensor(counts[ok])))
+
+
+def hold_train_mllt(stats, card_A) -> dict:
+    """A worker's hold of the card's MLLT: the CPU's A, row directions
+    (the objective ignores the rows' lengths) and objectives."""
+    t0 = time.perf_counter()
+    A = estimate_mllt(*stats, device="cpu")
+
+    def unit(M):
+        M = np.asarray(M, np.float64)
+        return M / np.linalg.norm(M, axis=1, keepdims=True)
+    row = float(np.max(np.abs(unit(card_A) - unit(A))))
+    obj = (_mllt_objective64(card_A, stats), _mllt_objective64(A, stats),
+           _mllt_objective64(np.eye(A.shape[0]), stats))
+    rel = abs(obj[0] - obj[1]) / abs(obj[1])
+    return _train_verdict(
+        row <= MLLT_ATOL and rel <= MLLT_OBJ_RTOL and obj[0] < obj[2],
+        {"row_max_abs_diff": row,
+         "raw_max_abs_diff": float(np.max(np.abs(card_A - A))),
+         "objective_card_cpu_identity": obj, "objective_rel_diff": rel},
+        t0, 0)
+
+
+def train_decode_task(paths: tuple, mfcs: list, card_words: list) -> dict:
+    """A worker's hold of decodes by the trained model: the CPU Decoder on
+    the same directory and files, words equal (segments counted)."""
+    t0 = time.perf_counter()
+    cpu = _cached(paths, lambda: Decoder(device="cpu", **dict(paths)))
+    hyps = [cpu.decode_cep_file(m) for m in mfcs]
+    return _train_verdict(
+        [h.words for h in hyps] == [w for w, _ in card_words],
+        {"segments_differing": sum(segs(h) != s for h, (_, s)
+                                   in zip(hyps, card_words))}, t0, len(mfcs))
+
+
+def stage_pass(tr, dev) -> tuple:
+    """One forward-backward at the trainer's parameters, after a pass that
+    warms the card up, CUDA events around its stages: (llh, acc, {stage:
+    ms})."""
+    tr.accumulate()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    p = bw.fb_forward(tr.dbatch, *device_params(tr.params, dev), device=dev)
+    ev[1].record()
+    bw.fb_backward(p)
+    ev[2].record()
+    llh, acc = bw.fb_accumulate(p)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return llh, acc, {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(
+        ("forward", "backward", "accumulate"))}
+
+
+def profile_pass(tr, dev) -> dict:
+    """One forward-backward under torch.profiler: device events, events a
+    frame step (both directions), and the device's busy share of the
+    pass's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = device_params(tr.params, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bw.forward_backward(tr.dbatch, *args, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e6
+    steps = 2 * (tr.batch.feats.shape[1] - 1)
+    return {"device_events": len(ev), "events_per_frame_step": len(ev) / steps,
+            "profiled_wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall}
+
+
+def timed_em_steps(tr, n: int) -> list:
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.em_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def fell(hist) -> bool:
+    return any(b < a - EM_SLACK for a, b in zip(hist, hist[1:]))
+
+
+def phase_train(dev, holds: Holds, tmp: str) -> dict:
+    """The trainer at the hub4-class continuous width: TRAIN_UTTS
+    utterances, a CI model (39 phones + SIL, 3 states: 120 senones) at
+    K=32, EM on the card; its step 1, alignment and MLLT held against the
+    CPU; the exported model decoded through Decoder(device="cuda")."""
+    t0 = time.perf_counter()
+    fx = fixture.build(SEED, size=dataclasses.replace(fixture.FULL,
+                                                      n_utt=TRAIN_UTTS))
+    feats = FeatPipeline(fx.feat_config(), device=dev).compute_batch(fx.ceps)
+    phones, pron = fixture.train_corpus(fx)
+    model = FlatModel.create(phones)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(model, pron, fx.transcripts, feats, K=TRAIN_K, device=dev)
+    setup_s = time.perf_counter() - t0
+    # Step 1's pass at the flat start, its stages timed, held on the CPU.
+    llh1, acc1, stage_ms = stage_pass(tr, dev)
+    holds.submit("train/step1", hold_train_pass, tr.batch, _np_args(tr.params),
+                 llh1.cpu().numpy(), host_acc(acc1))
+    step1 = float(llh1.sum()) / int(acc1["n_frames"])
+    del acc1
+    prof = profile_pass(tr, dev)
+    walls = timed_em_steps(tr, TRAIN_STEPS)
+    peak = peak_mb()
+    hist = tr.history
+    # The alignment at the final parameters, and MLLT on its senones.
+    scores, states = bw.viterbi_align(tr.dbatch, *device_params(tr.params,
+                                                                dev),
+                                      device=dev)
+    states = states.cpu().numpy()
+    holds.submit("train/viterbi", hold_train_viterbi, tr.batch,
+                 _np_args(tr.params), scores.cpu().numpy(), states)
+    labels = np.concatenate([tr.batch.state_sen[b][states[b, :T]]
+                             for b, T in enumerate(tr.batch.T)])
+    stats = class_scatter_stats(np.concatenate(feats), labels, model.n_sen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    A = estimate_mllt(*stats, device=dev)
+    mllt_s = time.perf_counter() - t1
+    holds.submit("train/mllt", hold_train_mllt, stats, A)
+    # The exported model beside the fixture's LM and dictionary, decoded.
+    base = os.path.join(tmp, "train")
+    hmm = os.path.join(base, "hmm")
+    export_model(hmm, model, tr.params)
+    with open(os.path.join(hmm, "noisedict"), "w") as fh:
+        fh.write("<s> SIL\n</s> SIL\n<sil> SIL\n")
+    kw = {"hmm": hmm, "lm": os.path.join(base, "lm.arpa"),
+          "dict": os.path.join(base, "words.dict")}
+    fx.lm.write_arpa(kw["lm"])
+    with open(kw["dict"], "w") as fh:
+        fh.writelines(f"{w} {' '.join(p)}\n" for w, p in pron.items())
+    dec = Decoder(device=dev, **kw)
+    mfcs = []
+    for i, c in enumerate(fx.ceps[:TRAIN_DECODE_UTTS]):
+        mfcs.append(os.path.join(base, f"u{i}.mfc"))
+        write_mfc(mfcs[-1], c)
+    fused_mixture_scores.launches = 0
+    hyps = [dec.decode_cep_file(m) for m in mfcs]
+    n = fused_mixture_scores.launches
+    paths = tuple(sorted(kw.items()))
+    for lo in range(0, len(mfcs), HOLD_UTTS):
+        holds.submit("train/decode", train_decode_task, paths,
+                     mfcs[lo: lo + HOLD_UTTS],
+                     [(h.words, segs(h)) for h in hyps[lo: lo + HOLD_UTTS]])
+    refs = fx.transcripts[:TRAIN_DECODE_UTTS]
+    errs = sum(fixture.word_errors(r, h.words) for r, h in zip(refs, hyps))
+    frames = int(tr.batch.T.sum())
+    em_ms = 1e3 * statistics.median(walls)
+    out = {"phase": "train", "utterances": len(feats), "frames": frames,
+           "frames_padded": int(tr.batch.feats.shape[1]),
+           "states_max": int(tr.batch.state_sen.shape[1]),
+           "senones": model.n_sen, "K": TRAIN_K, "D": int(feats[0].shape[1]),
+           "setup_s": setup_s, "history": hist, "step1_per_frame": step1,
+           "em_step_ms": [1e3 * w for w in walls],
+           "em_step_ms_median": em_ms, "pass_ms_cuda_events": stage_ms,
+           "bw_frames_per_s": frames / (em_ms / 1e3),
+           **prof, "peak_mb": peak, "viterbi_score_mean_per_frame":
+           float(scores.sum()) / frames, "mllt_s": mllt_s,
+           "decoded": len(hyps), "k1_launches": n, "word_errors": errs,
+           "ref_words": sum(len(r) for r in refs),
+           "wer": errs / sum(len(r) for r in refs)}
+    emit(out)
+    if fell(hist) or abs(hist[0] - step1) > 1e-6 * abs(step1) or \
+            n != len(mfcs) or not all(np.isfinite(hist)):
+        raise AssertionError(f"train: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def stage_seconds():
+    """Host seconds of the CD pipeline's EM (the CI Trainer's steps and
+    `em_loop`: the pass on the card and the host reestimation) and of its
+    tying (`tie_states`, on the host), by wrapping them for the duration."""
+    secs = {"em_s": 0.0, "tie_s": 0.0}
+
+    def wrap(fn, key):
+        @functools.wraps(fn)
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return timed
+    saved = (pipeline.em_loop, pipeline.tie_states, Trainer.em_step)
+    pipeline.em_loop = wrap(saved[0], "em_s")
+    pipeline.tie_states = wrap(saved[1], "tie_s")
+    Trainer.em_step = wrap(saved[2], "em_s")
+    try:
+        yield secs
+    finally:
+        pipeline.em_loop, pipeline.tie_states, Trainer.em_step = saved
+
+
+def phase_train_pipeline(dev, fx, tmp: str) -> dict:
+    """train_full_pipeline on the slice's 16 utterances, split to
+    PIPE_GAUSS Gaussians, every EM on the card; its export read back."""
+    phones, pron = fixture.train_corpus(fx)
+    model = FlatModel.create(phones)
+    feats = FeatPipeline(fx.feat_config(), device=dev).compute_batch(fx.ceps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with stage_seconds() as secs:
+        inv, smap, tied, hist = pipeline.train_full_pipeline(
+            model, pron, fx.transcripts, feats, gauss=PIPE_GAUSS,
+            device=dev)
+    wall = time.perf_counter() - t0
+    d = os.path.join(tmp, "train_cd")
+    pipeline.export_cd_model(d, inv, smap, tied)
+    mdef = Mdef.read(os.path.join(d, "mdef"))
+    g = read_gauden(os.path.join(d, "means"), os.path.join(d, "variances"))
+    tm = TransitionMatrices.read(os.path.join(d, "transition_matrices"))
+    n_tied = tied.means.shape[0]
+    out = {"phase": "train_pipeline", "utterances": len(feats),
+           "triphones": inv.n_tri, "untied_senones": inv.n_sen,
+           "tied_senones": n_tied, "K": int(tied.means.shape[1]),
+           "em_steps": {k: len(h) for k, h in hist.items()},
+           "history": hist, "wall_s": wall, "em_s": secs["em_s"],
+           "tie_s": secs["tie_s"], "peak_mb": peak_mb(),
+           "readback": {"n_phone": mdef.n_phone, "n_sen": mdef.n_sen,
+                        "n_mgau": g.n_mgau, "n_tmat": tm.n_tmat,
+                        "bakis": bool(tm.check_bakis())}}
+    emit(out)
+    falls = [k for k, h in hist.items() if fell(h)]
+    if falls or tied.means.shape[1] != PIPE_GAUSS or \
+            mdef.n_phone != len(phones) + inv.n_tri or \
+            mdef.n_sen != n_tied or g.n_mgau != n_tied or \
+            not tm.check_bakis():
+        raise AssertionError(f"train_pipeline: stages fell {falls}, {out}")
+    return out
+
+
+def phase_train_semicont(dev, fx, holds: Holds) -> dict:
+    """SemiContTrainer at hub4wsj_sc_8k's codebook width (K=256) on the
+    slice's 16 utterances: step 1 held against the CPU, then
+    SEMI_TRAIN_STEPS EM steps."""
+    phones, pron = fixture.train_corpus(fx)
+    feats = FeatPipeline(fx.feat_config(), device=dev).compute_batch(fx.ceps)
+    t0 = time.perf_counter()
+    tr = SemiContTrainer(FlatModel.create(phones), pron, fx.transcripts,
+                         feats, K=SEMI_TRAIN_K, device=dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    llh1, acc1, stage_ms = stage_pass(tr, dev)
+    holds.submit("train_semicont/step1", hold_train_pass, tr.batch,
+                 _np_args(tr.params), llh1.cpu().numpy(), host_acc(acc1))
+    step1 = float(llh1.sum()) / int(acc1["n_frames"])
+    del acc1
+    walls = timed_em_steps(tr, SEMI_TRAIN_STEPS)
+    frames = int(tr.batch.T.sum())
+    out = {"phase": "train_semicont", "utterances": len(feats),
+           "frames": frames, "K": SEMI_TRAIN_K, "kmeans_init_s": init_s,
+           "history": tr.history, "pass_ms_cuda_events": stage_ms,
+           "em_step_ms": [1e3 * w for w in walls],
+           "bw_frames_per_s": frames / statistics.median(walls),
+           "peak_mb": peak_mb()}
+    emit(out)
+    if fell(tr.history) or abs(tr.history[0] - step1) > 1e-6 * abs(step1):
+        raise AssertionError(f"train_semicont: {out}")
+    return out
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     info = phase_device()
@@ -1560,6 +1976,9 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     cont_spec = (SEED, "cont", fixture.FULL)
     cont = fixture.build(SEED)
     grammar = phase_grammar(dev, cont, tmp, holds)
+    train = phase_train(dev, holds, tmp)
+    phase_train_pipeline(dev, cont, tmp)
+    phase_train_semicont(dev, cont, holds)
     card = info["nvidia_smi"]
     phase_large_vocab(dev, card, "large_vocab_static",
                       (SEED, "semi", fixture.LARGE_5K), "ps", "flat", "rows",
@@ -1601,7 +2020,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
         "launches": sum(p["k1_launches"] for p in (
             sl, dec, tree, stream, stream_tree, dec_stream, lat, dec_wide,
-            grammar, align, options)),
+            grammar, align, options, train)),
         **{k: k1["highest"][k] for k in keys},
         "stream_shape": {"T": T_STREAM, **{k: k1_stream["highest"][k]
                                            for k in keys}},

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .models.ngram_device import DeviceNgram
+from .train.trainer import HmmParams
 
 
 def _f32(a) -> np.ndarray:
@@ -76,3 +77,12 @@ def ptm_from_jax(lin, quad, const, lnw, sen2cb, n_cb: int,
             "quad": np.ascontiguousarray(_f32(quad).T.reshape(C, K, D)),
             "const": _f32(const).reshape(C, K), "lnw": _f32(lnw),
             "sen2cb": np.asarray(sen2cb, np.int32)}
+
+
+def hmm_params_from_jax(means, var, lnw, tp) -> HmmParams:
+    """The reference trainer's `HmmParams` arrays
+    (`cmusphinx_tpu/train/trainer.py:36-55`: means, var [n_sen, K, D], lnw
+    [n_sen, K], tp [n_tmat, n, n+1]) -> the port's `HmmParams`, float32 and
+    C-contiguous."""
+    return HmmParams(*(np.ascontiguousarray(_f32(a))
+                       for a in (means, var, lnw, tp)))

@@ -572,6 +572,15 @@ def grammar_fsg(fx: Fixture) -> FsgModel:
     return fsg
 
 
+def train_corpus(fx: Fixture) -> Tuple[List[str], Dict[str, List[str]]]:
+    """The fixture as a training corpus for `train.FlatModel`: its CI phone
+    names (SIL last) and each word's pronunciation in them."""
+    phones = [fx.mdef.ciname[p] for p in range(fx.mdef.n_ciphone)]
+    pron = {fx.dict.word_str(w): [fx.mdef.ciname[p] for p in fx.dict.pron[w]]
+            for w in range(fx.dict.n_word) if not fx.dict.is_filler(w)}
+    return phones, pron
+
+
 def synthetic_pcm(seed: int, seconds: float = 2.0, sr: int = 16000
                   ) -> np.ndarray:
     """Seeded 16-bit PCM for driving the waveform frontend: gliding tones

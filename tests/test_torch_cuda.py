@@ -13,7 +13,11 @@ lifter (as tests/test_torch_fe.py states it); every LM backend
 bit-exact; the large-vocabulary decodes with integer tapes equal and float
 tapes within rtol 1e-5 (K1's 3xTF32 products against the CPU's plain IEEE
 f32 scorer); K1 against its plain version and float64 as stated at
-`SAME_BOUND`.
+`SAME_BOUND`; the trainer's forward-backward with each utterance's
+log-likelihood within rtol 1e-5 and its accumulators within
+`bw.posterior_rtol` of the CPU's and of a float64 pass (the card's atomics
+sum in another order), Viterbi states equal but for near-ties (both paths
+scoring within 1e-6 relative in float64).
 
 On a machine with the card (which has no JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -34,6 +38,9 @@ from cmusphinx_tpu_torch.ops import (ContinuousScorer, InterpolatedScorer,
                                      SemiContinuousScorer)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
+from cmusphinx_tpu_torch.train import bw
+from cmusphinx_tpu_torch.train.sentence_hmm import FlatModel
+from cmusphinx_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -581,3 +588,85 @@ def test_bestpath_on_card_tapes_matches_cpu(cuda):
     assert [h.words for h in gn] == [h.words for h in cn]
     m = np.isfinite(cp)
     np.testing.assert_allclose(gp[m], cp[m], rtol=0, atol=1e-4)
+
+
+def _trained(K=4, steps=2):
+    """A CPU Trainer over fixture.SMALL's CI phones after `steps` EM
+    steps."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    phones, pron = fixture.train_corpus(fx)
+    feats = FeatPipeline(fx.feat_config(), device="cpu").compute_batch(
+        fx.ceps)
+    tr = Trainer(FlatModel.create(phones), pron, fx.transcripts, feats, K=K,
+                 device="cpu")
+    for _ in range(steps):
+        tr.em_step()
+    return tr
+
+
+def _args(p, dtype=np.float32):
+    return tuple(a.astype(dtype) for a in (p.means, p.prec, p.lnw, p.log_tp))
+
+
+def _hold_acc(got, want, rtol):
+    for k in ("mixw", "mean", "var", "tmat"):
+        w = want[k].double().cpu().numpy()
+        np.testing.assert_allclose(got[k].double().cpu().numpy(), w,
+                                   rtol=rtol, atol=0.1 * rtol * np.abs(w).max(),
+                                   err_msg=k)
+    assert int(got["n_frames"]) == int(want["n_frames"])
+
+
+def test_train_forward_backward_and_viterbi_on_card_match_cpu(cuda):
+    tr = _trained()
+    B, Tmax = tr.batch.feats.shape[:2]
+    for kw in ({}, {"weights": np.linspace(0.25, 1.0, B)}):
+        gl, ga = bw.forward_backward(tr.batch, *_args(tr.params), device=cuda,
+                                     **kw)
+        cl, ca = bw.forward_backward(tr.batch, *_args(tr.params),
+                                     device="cpu", **kw)
+        np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), rtol=1e-5)
+        _hold_acc(ga, ca, bw.posterior_rtol(cl, Tmax))
+    gs, gst = bw.viterbi_align(tr.batch, *_args(tr.params), device=cuda)
+    cs, cst = bw.viterbi_align(tr.batch, *_args(tr.params), device="cpu")
+    np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=1e-5)
+    differ = [b for b in range(B) if not torch.equal(gst[b].cpu(), cst[b])]
+    if differ:
+        f64 = _args(tr.params, np.float64)
+        a = bw.alignment_scores(tr.batch, *f64, gst.cpu(), device="cpu")
+        c = bw.alignment_scores(tr.batch, *f64, cst, device="cpu")
+        np.testing.assert_allclose(a[differ].numpy(), c[differ].numpy(),
+                                   rtol=1e-6)
+    assert len(differ) <= 1, differ
+
+
+def test_train_accumulators_on_card_against_float64(cuda):
+    tr = _trained()
+    Tmax = tr.batch.feats.shape[1]
+    gl, ga = bw.forward_backward(tr.batch, *_args(tr.params), device=cuda)
+    dl, da = bw.forward_backward(tr.batch, *_args(tr.params, np.float64),
+                                 device="cpu")
+    assert da["mixw"].dtype == torch.float64
+    np.testing.assert_allclose(gl.cpu().double().numpy(), dl.numpy(),
+                               rtol=1e-5)
+    _hold_acc(ga, da, bw.posterior_rtol(dl, Tmax))
+
+
+def test_train_em_step_at_k32_on_card(cuda):
+    fx = fixture.build(0, size=fixture.SMALL)
+    phones, pron = fixture.train_corpus(fx)
+    feats = FeatPipeline(fx.feat_config(), device="cpu").compute_batch(
+        fx.ceps)
+    trs = [Trainer(FlatModel.create(phones), pron, fx.transcripts, feats,
+                   K=32, device=dev) for dev in (cuda, "cpu")]
+    assert trs[0].dbatch.feats.device.type == torch.device(cuda).type
+    rtol = bw.posterior_rtol(trs[1].accumulate()[0],
+                             trs[1].batch.feats.shape[1])
+    g, c = (tr.em_step() for tr in trs)
+    assert g == pytest.approx(c, rel=1e-5)
+    for k in ("means", "var", "lnw", "tp"):
+        a, b = getattr(trs[0].params, k), getattr(trs[1].params, k)
+        np.testing.assert_allclose(a, b, rtol=rtol,
+                                   atol=0.1 * rtol * np.abs(b).max(),
+                                   err_msg=k)
+

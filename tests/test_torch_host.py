@@ -1,8 +1,10 @@
 """The port's own copies of the host modules (model readers and writers,
 the grammar models, binary I/O, configuration, the LM estimator, the
-lexicon-graph builder)
+lexicon-graph builder, and the trainer's numpy code: sentence HMMs, model
+export, decision trees and the copied functions of the pipeline, the
+transforms, semi-continuous training and MMIE)
 read and build exactly what the reference package's originals do, and no
-file of the port imports JAX or the reference package."""
+file of the port imports JAX, optax or the reference package."""
 
 import ast
 import dataclasses
@@ -27,6 +29,14 @@ from cmusphinx_tpu.models import mllr as j_mllr
 from cmusphinx_tpu.models import ngram as j_ngram
 from cmusphinx_tpu.models import sendump as j_sendump
 from cmusphinx_tpu.models import tmat as j_tmat
+from cmusphinx_tpu.train import dtree as j_dtree
+from cmusphinx_tpu.train import mmie as j_mmie
+from cmusphinx_tpu.train import model_io as j_model_io
+from cmusphinx_tpu.train import pipeline as j_pipeline
+from cmusphinx_tpu.train import semicont as j_semicont
+from cmusphinx_tpu.train import sentence_hmm as j_sentence_hmm
+from cmusphinx_tpu.train import trainer as j_trainer
+from cmusphinx_tpu.train import transform as j_transform
 from cmusphinx_tpu.utils import bio as j_bio
 from cmusphinx_tpu.utils import config as j_config
 from cmusphinx_tpu_torch import fixture
@@ -46,6 +56,14 @@ from cmusphinx_tpu_torch.models import mllr as t_mllr
 from cmusphinx_tpu_torch.models import ngram as t_ngram
 from cmusphinx_tpu_torch.models import sendump as t_sendump
 from cmusphinx_tpu_torch.models import tmat as t_tmat
+from cmusphinx_tpu_torch.train import dtree as t_dtree
+from cmusphinx_tpu_torch.train import mmie as t_mmie
+from cmusphinx_tpu_torch.train import model_io as t_model_io
+from cmusphinx_tpu_torch.train import pipeline as t_pipeline
+from cmusphinx_tpu_torch.train import semicont as t_semicont
+from cmusphinx_tpu_torch.train import sentence_hmm as t_sentence_hmm
+from cmusphinx_tpu_torch.train import trainer as t_trainer
+from cmusphinx_tpu_torch.train import transform as t_transform
 from cmusphinx_tpu_torch.utils import bio as t_bio
 from cmusphinx_tpu_torch.utils import config as t_config
 
@@ -286,6 +304,102 @@ def test_train_lm_matches_reference():
                     t_estimate.train_lm(sents, **kw))
 
 
+_TRAIN_PRON = {"ab": ["A", "B"], "ba": ["B", "A"], "cab": ["C", "A", "B"],
+               "c": ["C"]}
+_TRAIN_TEXTS = [["ab"], ["ba", "c"], ["cab", "ab"], ["c", "ba", "cab"]]
+
+
+def _params(mods, S, K, D, seed):
+    """Seeded HmmParams of one package's class."""
+    rng = np.random.RandomState(seed)
+    model = mods["sentence_hmm"].FlatModel.create(["SIL", "A", "B", "C"])
+    return mods["trainer"].HmmParams(
+        means=rng.randn(S, K, D).astype(np.float32),
+        var=(rng.rand(S, K, D) + 0.2).astype(np.float32),
+        lnw=np.log(rng.dirichlet(np.ones(K), S)).astype(np.float32),
+        tp=model.init_tmat().astype(np.float32))
+
+
+def _train(case, mods, tmp):
+    """What one copied trainer module of one package (mods: the
+    reference's or the port's by short name) builds from seeded inputs."""
+    sh = mods["sentence_hmm"]
+    model = sh.FlatModel.create(["SIL", "A", "B", "C"])
+    if case == "sentence_hmm":
+        return (model, model.init_tmat(),
+                [sh.build_sentence_hmm(t, _TRAIN_PRON, model)
+                 for t in _TRAIN_TEXTS],
+                sh.build_sentence_hmm(["cab"], _TRAIN_PRON, model,
+                                      optional_sil=False))
+    pl = mods["pipeline"]
+    inv = pl.TriphoneInventory.from_corpus(model, _TRAIN_PRON, _TRAIN_TEXTS)
+    occ = np.random.RandomState(5).rand(inv.n_sen, 2) * 10
+    ci = _params(mods, model.n_sen, 2, 3, 1)
+    cd = pl.init_cd_params(ci, model, inv)
+    if case == "pipeline":
+        view = inv.make_cd_model()
+        rp = view.resolve_pron(_TRAIN_PRON)
+        return (inv, rp, [pl.cd_sentence_hmm(t, rp, view)
+                          for t in _TRAIN_TEXTS], cd,
+                pl.tie_states(inv, cd, occ, max_senones_per_group=2),
+                pl.split_gaussians(ci))
+    if case == "dtree":
+        return mods["dtree"].tie_states_dtree(inv, cd, occ,
+                                              total_leaves=10)
+    if case == "model_io":
+        out = os.path.join(tmp, mods["tag"])
+        mods["model_io"].export_model(os.path.join(out, "ci"), model, ci)
+        smap, tied = pl.tie_states(inv, cd, occ, max_senones_per_group=2)
+        pl.export_cd_model(os.path.join(out, "cd"), inv, smap, tied,
+                           feat="1s_c")
+        return {f"{d}/{n}": open(os.path.join(out, d, n), "rb").read()
+                for d in ("ci", "cd")
+                for n in sorted(os.listdir(os.path.join(out, d)))}
+    tf = mods["transform"]
+    rng = np.random.RandomState(6)
+    if case == "transform":
+        feats = rng.randn(300, 4).astype(np.float32)
+        labels = rng.randint(0, 3, 300)
+        stats = tf.class_scatter_stats(feats, labels, 3)
+        acc = {"mixw": rng.rand(12, 2) * 5, "mean": rng.randn(12, 2, 3)}
+        blocks = [rng.rand(12, 2) * 9 for _ in range(3)]
+        return (stats, tf.estimate_lda(*stats), tf.estimate_lda(*stats, 2),
+                tf.apply_mllt_to_model(rng.randn(3, 3), ci.means, ci.var),
+                tf.map_adapt(ci, acc), tf.map_adapt(ci, acc, 2.0, False),
+                tf.deleted_interpolation(blocks, blocks[::-1],
+                                         np.arange(12) % 4),
+                tf.mixw_interp(blocks[0], blocks[1], 0.25))
+    if case == "semicont":
+        X = [rng.randn(400, 3) * 2, rng.randn(100, 3) + 4]
+        return (mods["semicont"].kmeans_init(X, 5, seed=2),
+                mods["semicont"].kmeans_init(X, 4, seed=1, max_obs=250))
+    if case == "mmie":
+        num = {"mixw": rng.rand(12, 2) * 9, "mean": rng.randn(12, 2, 3) * 9,
+               "var": rng.rand(12, 2, 3) * 30 + 9,
+               "tmat": rng.rand(4, 3, 4)}
+        den = {k: 0.5 * v for k, v in num.items()}
+        return mods["mmie"].ebw_update(ci, num, den)
+    raise AssertionError(case)
+
+
+_JAX_TRAIN = {"tag": "jax", "sentence_hmm": j_sentence_hmm,
+              "pipeline": j_pipeline, "dtree": j_dtree,
+              "model_io": j_model_io, "transform": j_transform,
+              "semicont": j_semicont, "mmie": j_mmie, "trainer": j_trainer}
+_PORT_TRAIN = {"tag": "port", "sentence_hmm": t_sentence_hmm,
+               "pipeline": t_pipeline, "dtree": t_dtree,
+               "model_io": t_model_io, "transform": t_transform,
+               "semicont": t_semicont, "mmie": t_mmie, "trainer": t_trainer}
+
+
+@pytest.mark.parametrize("case", ["sentence_hmm", "pipeline", "dtree",
+                                  "model_io", "transform", "semicont",
+                                  "mmie"])
+def test_train_copies_match_reference(case, tmp_path):
+    assert_same(_train(case, _JAX_TRAIN, str(tmp_path)),
+                _train(case, _PORT_TRAIN, str(tmp_path)))
+
+
 def _imports(path):
     """Absolute module names that a file imports."""
     out = []
@@ -306,8 +420,12 @@ def test_no_port_file_imports_jax_or_the_reference():
         "decode/lattice", "frontend/source", "frontend/vad", "pipeline",
         "utils/log", "utils/profile", "utils/native", "cli/batch",
         "cli/continuous", "models/fsg", "models/jsgf", "models/cfg",
-        "decode/fsg_search", "decode/align", "decode/phone_loop")} <= names
+        "decode/fsg_search", "decode/align", "decode/phone_loop",
+        "train/__init__", "train/bw", "train/trainer", "train/sentence_hmm",
+        "train/model_io", "train/pipeline", "train/dtree", "train/semicont",
+        "train/mmie", "train/transform", "train/vtln")} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
-           if name.split(".")[0] in ("jax", "jaxlib", "cmusphinx_tpu")]
+           if name.split(".")[0] in ("jax", "jaxlib", "optax",
+                                     "cmusphinx_tpu")]
     assert not bad, bad

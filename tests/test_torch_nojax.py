@@ -179,3 +179,54 @@ def test_grammar_align_allphone_with_jax_blocked():
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "SEARCHES [True, True, True, True, True, True, True]" in r.stdout
+
+
+_TRAIN_WITHOUT_JAX = r"""
+import sys, tempfile
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["optax"] = None        # and of optax
+sys.modules["cmusphinx_tpu"] = None  # and any of the reference package
+import numpy as np
+from cmusphinx_tpu_torch.train import (FlatModel, Trainer, estimate_mllt,
+                                       class_scatter_stats, viterbi_align)
+from cmusphinx_tpu_torch.train.model_io import export_model
+from cmusphinx_tpu_torch.train.pipeline import train_full_pipeline
+rng = np.random.RandomState(0)
+model = FlatModel.create(["SIL", "A", "B"])
+pron = {"ab": ["A", "B"], "ba": ["B", "A"]}
+centers = {"SIL": 0.0, "A": 3.0, "B": -3.0}
+texts, feats = [["ab"], ["ba"], ["ab", "ba"], ["ba", "ab"]], []
+for words in texts:
+    seq = ["SIL"] + [p for w in words for p in pron[w] + ["SIL"]]
+    feats.append(np.concatenate([rng.randn(6, 4).astype(np.float32) * 0.3
+                                 + centers[p] for p in seq]))
+tr = Trainer(model, pron, texts, feats, K=2, device="cpu")
+hist = [tr.em_step() for _ in range(3)]
+ok = [all(b >= a - 1e-4 for a, b in zip(hist, hist[1:]))]
+_, states = viterbi_align(tr.batch, tr.params.means, tr.params.prec,
+                          tr.params.lnw, tr.params.log_tp, device="cpu")
+st = states.numpy()
+labels = np.concatenate([tr.batch.state_sen[b][st[b, :len(f)]]
+                         for b, f in enumerate(feats)])
+A = estimate_mllt(*class_scatter_stats(np.concatenate(feats), labels,
+                                       model.n_sen), n_iter=20,
+                  device="cpu")
+ok.append(A.shape == (4, 4))
+with tempfile.TemporaryDirectory() as tmp:
+    export_model(tmp, model, tr.params)
+_, _, _, h = train_full_pipeline(model, pron, texts, feats, gauss=2,
+                                 ci_iters=2, cd_iters=2, tied_iters=2,
+                                 device="cpu")
+ok.append(list(h) == ["ci", "cd_untied", "tied", "split_2"])
+assert not any(m.split(".")[0] in ("jax", "optax", "cmusphinx_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+print("TRAIN", ok)
+"""
+
+
+def test_trains_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _TRAIN_WITHOUT_JAX], env=env,
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "TRAIN [True, True, True]" in r.stdout
