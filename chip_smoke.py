@@ -131,10 +131,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (K=256) on the same 16 utterances: step 1 held against the CPU as in
    20, 2 EM steps, ms a step, peak MB.
 
+23. approx: the continuous slice's batch through decode_batch_cep with
+   DownsampledScorer(ds=2) and with CigmmsScorer(ci_pbeam=7) around
+   ContinuousScorer (K1 once a batch; WER), each held against the CPU
+   search on the card's senone scores; GsSelectorScorer (64 clusters,
+   top 2) and KdTreeSelectorScorer (depth 6, radius 3) at T=2000, their
+   codebook and tree built on the host in the hold workers, held against
+   the CPU (kd-tree leaves equal; the selector's cluster masks counted;
+   scores within D * 2^-22 * M where the masks agree); each scorer's ms
+   (CUDA events) and peak MB.
+24. subvq: build_subvq at the full width (3 subvectors of 256 codewords,
+   SUBVQ_ITER k-means iterations and SUBVQ_RESTARTS restarts, printed),
+   in a hold worker; SubVQScorer and its shortlist at T=2000 held against
+   the CPU; the batch decoded with it as the scorer (WER, peak MB), held
+   against the CPU search on its scores.
+25. replay: utterance 0's K1 scores written by write_senscr and decoded
+   through ReplayScorer.from_file: the live decode's words and segments.
+26. endpoint: FrameClassifier fitted on the card to the 16 utterances'
+   frames, labelled SIL / speech by the card's AlignSearch (K1 once an
+   utterance); the utterances joined end to end classified and segmented
+   by Endpointer, the spans equal to the CPU's (the same classifier moved
+   to the CPU, and the CPU's own fit); the log-likelihoods' largest
+   difference from the CPU's.
+27. align_tp: align_time_parallel (8 chunks) of utterance 0 and of the
+   first four utterances joined, K1 once each: the score against the
+   card's sequential AlignSearch.align and each path re-summed on the
+   host, within 4 T 2^-24 relative; ms against the sequential alignment;
+   S, P and T.
+28. multi_rank: parallel.dryrun.dryrun_multichip(1, "cuda") over a real
+   NCCL group of one rank: a sharded EM step against em_step, the
+   -part/-npart accumulators against the single pass, and data-parallel
+   decodes of the slice (mpx and tree) gathered and held to the
+   one-process decode (K1 four times).
+
 The CPU holds run in worker processes while the card goes on, so the
-phases run in the order that hands the holds over first: 1-3, 10, 15
-(K1), 16, 20-22, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5,
-6, 7, 13 and 19.
+phases run in the order that hands the holds over first: the host builds
+of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
+23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 6, 7, 13
+and 19.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -144,6 +178,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -162,9 +197,12 @@ from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.decode import lattice as lattice_mod
-from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend
+from cmusphinx_tpu_torch.decode.align import AlignSearch
+from cmusphinx_tpu_torch.decode.align_tp import _pred_table, align_time_parallel
+from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
-                                     SemiContinuousScorer, fused_gmm)
+                                     SemiContinuousScorer, approx, fused_gmm,
+                                     subvq)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 from cmusphinx_tpu_torch.models.gauden import read_gauden
@@ -178,7 +216,8 @@ from cmusphinx_tpu_torch.train.trainer import Trainer, device_params, host_acc
 from cmusphinx_tpu_torch.train.transform import (class_scatter_stats,
                                                  estimate_mllt,
                                                  mllt_objective)
-from cmusphinx_tpu_torch.utils import native
+from cmusphinx_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
+from cmusphinx_tpu_torch.utils import native, senfh
 from cmusphinx_tpu_torch.utils.bio import write_mfc
 
 SEED = 0
@@ -259,6 +298,22 @@ PIPE_GAUSS = 32
 # nats a frame (the reference's own EM test allows as much).
 LLH_RTOL, TIE_RTOL, MLLT_ATOL, MLLT_OBJ_RTOL, EM_SLACK = (
     1e-5, 1e-6, 1e-3, 1e-5, 1e-4)
+# Phases 23-28 at the slice's width: the masked selectors and SubVQ at
+# T=T_APPROX frames; the Gaussian selector's VQ size (its default) and the
+# BBI tree's depth and box radius (their defaults); SubVQ at the
+# reference's default codebooks (3 subvectors of 256 codewords) with
+# fewer k-means iterations and restarts than its 20 and 3, which take
+# minutes of host time at this width; its shortlist beam.  The endpointer:
+# components a class, EM steps, and a state machine that splits the
+# joined utterances.  The time-parallel alignment's chunks.
+T_APPROX = 2000
+GS_CLUSTERS = 64
+KD_DEPTH, KD_RADIUS = 6, 3.0
+SUBVQ_NSV, SUBVQ_SIZE, SUBVQ_ITER, SUBVQ_RESTARTS, SUBVQ_BEAM = (
+    3, 256, 4, 1, 10.0)
+EP_COMP, EP_ITER = 4, 10
+EP_SPANS = {"end_window": 20, "pad_before": 5, "pad_after": 5}
+ALIGN_TP_CHUNKS = 8
 
 
 # The host clock at the start of main: each phase's line carries the
@@ -820,10 +875,18 @@ def tape_diff(got, want) -> tuple:
 
 
 def make_scorer(kind: str, fx, dev):
-    """The slices' scorers: "cont" (ContinuousScorer, K1 on the card) or
-    "ps" (PsParityScorer over the fixture's sendump)."""
+    """The slices' scorers: "cont" (ContinuousScorer, K1 on the card), "ps"
+    (PsParityScorer over the fixture's sendump), and the approximate
+    scorers around ContinuousScorer: "ds2" (DownsampledScorer, ds=2) and
+    "cigmms7" (CigmmsScorer, ci_pbeam=7)."""
     if kind == "cont":
         return ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev)
+    if kind == "ds2":
+        return approx.DownsampledScorer(make_scorer("cont", fx, dev), 2)
+    if kind == "cigmms7":
+        return approx.CigmmsScorer(make_scorer("cont", fx, dev),
+                                   fx.mdef.cd2cisen, fx.mdef.n_ci_sen, 7.0,
+                                   device=dev)
     raw, meta = fixture.sendump_bytes(fx)
     return PsParityScorer(fx.gauden, raw, fx.stream_slices(), topn=TOPN,
                           wrap_uint8=meta["n_bits"] == 4, device=dev)
@@ -854,12 +917,13 @@ def _cpu_search(spec, kind: str, kw: tuple):
     return _cached((spec, kind, kw), make)
 
 
-def hold_search_task(spec, kind, kw, rows, scores, feats, Ts, card_segs
-                     ) -> dict:
+def hold_search_task(spec, kind, kw, rows, scores, feats, Ts, card_segs,
+                     count_own: bool = True) -> dict:
     """A worker's hold of utterances of a card batch: the CPU search fed
     the card's senone scores [n, Tpad, S] (features [n, Tpad, D]) against
-    the card's tape rows and segments.  Also counts the scores the CPU
-    scorer gives otherwise (reported, not held)."""
+    the card's tape rows and segments.  With `count_own`, also counts the
+    scores the CPU search's own scorer gives otherwise (reported, not
+    held)."""
     t0 = time.perf_counter()
     _, cpu = _cpu_search(spec, kind, kw)
     E = cpu.E
@@ -872,15 +936,17 @@ def hold_search_task(spec, kind, kw, rows, scores, feats, Ts, card_segs
     int_diff, rel = tape_diff(
         [x[i, :T * E] for x in rows for i, T in enumerate(Ts)],
         [y[i, :T * E] for y in want for i, T in enumerate(Ts)])
-    valid = np.arange(feats.shape[1])[None, :] < np.asarray(Ts)[:, None]
-    with torch.inference_mode():
-        differ = own.score(torch.as_tensor(feats)).numpy() != scores
-    return {"utterances": len(Ts), "int_values_differing": int_diff,
-            "float_max_rel_diff": rel,
-            "hyps_equal": [segs(h) for h in hyps] == card_segs,
-            "cpu_scores_differing": int((differ & valid[..., None]).sum()),
-            "scores_compared": int(valid.sum()) * scores.shape[2],
-            "seconds": time.perf_counter() - t0}
+    out = {"utterances": len(Ts), "int_values_differing": int_diff,
+           "float_max_rel_diff": rel,
+           "hyps_equal": [segs(h) for h in hyps] == card_segs}
+    if count_own:
+        valid = np.arange(feats.shape[1])[None, :] < np.asarray(Ts)[:, None]
+        with torch.inference_mode():
+            differ = own.score(torch.as_tensor(feats)).numpy() != scores
+        out["cpu_scores_differing"] = int((differ & valid[..., None]).sum())
+        out["scores_compared"] = int(valid.sum()) * scores.shape[2]
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def hold_e2e_task(spec, kind, kw, row0, T0: int, card_segs) -> dict:
@@ -989,11 +1055,11 @@ class Holds:
 
 def submit_batch_holds(holds: Holds, name: str, spec, kind: str, kw: dict,
                        search, fp, fx, tapes, hyps, n: int,
-                       e2e: bool = True) -> None:
+                       e2e: bool = True, count_own: bool = True) -> None:
     """Hand a counted card batch (`tapes` [B, Tpad*E, ...] on the host,
     `hyps`) to the CPU holds: its first n utterances through the CPU
-    search fed the card's senone scores, HOLD_UTTS a task, and (`e2e`)
-    utterance 0 end to end."""
+    search (`kind`'s scorer) fed the card's senone scores, HOLD_UTTS a
+    task, and (`e2e`) utterance 0 end to end."""
     c, T, Ts = search._pad(fx.ceps)
     with torch.inference_mode():
         feats = fp._padded_kernel(c, T, True)
@@ -1004,7 +1070,7 @@ def submit_batch_holds(holds: Holds, name: str, spec, kind: str, kw: dict,
         hi = min(n, lo + HOLD_UTTS)
         holds.submit(f"{name}/search", hold_search_task, spec, kind, kw,
                      [t[lo:hi] for t in tapes], scores[lo:hi], feats[lo:hi],
-                     Ts[lo:hi], [segs(h) for h in hyps[lo:hi]])
+                     Ts[lo:hi], [segs(h) for h in hyps[lo:hi]], count_own)
     if e2e:
         holds.submit(f"{name}/e2e", hold_e2e_task, spec, kind, kw,
                      [t[:1] for t in tapes], Ts[0], segs(hyps[0]))
@@ -1942,6 +2008,420 @@ def phase_train_semicont(dev, fx, holds: Holds) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# The rest of the device code (phases 23-28): approximate and replayed
+# scoring, the endpointer, time-parallel alignment and the multi-process
+# dry run, at the continuous slice's width (fixture.build(0)).  The host
+# builds of the selectors and of the subvq codebooks run in the hold
+# workers from the start of the run (`submit_builds`).
+def build_task(what: str, spec) -> tuple:
+    """A worker's host build on fixture `spec`: "gs" the Gaussian
+    selector's VQ (`approx.vq_codebook`), "kd" the BBI tree
+    (`approx.bbi_tree`), "subvq" the sub-vector codebooks
+    (`subvq.build_subvq`).  Returns (result, seconds)."""
+    t0 = time.perf_counter()
+    fx = _cached(spec, lambda: fixture.build(spec[0], model=spec[1],
+                                             size=spec[2]))
+    if what == "gs":
+        out = approx.vq_codebook(fx.gauden, GS_CLUSTERS, SEED)
+    elif what == "kd":
+        out = approx.bbi_tree(fx.gauden, KD_DEPTH, KD_RADIUS)
+    else:
+        out = subvq.build_subvq(fx.gauden, n_sv=SUBVQ_NSV,
+                                vqsize=SUBVQ_SIZE, n_iter=SUBVQ_ITER,
+                                seed=SEED, n_restarts=SUBVQ_RESTARTS)
+    return out, time.perf_counter() - t0
+
+
+def submit_builds(holds: Holds, spec) -> dict:
+    return {what: holds.pool.apply_async(build_task, (what, spec))
+            for what in ("subvq", "gs", "kd")}
+
+
+def magnitude_cpu(x, sc, rows: int = 250) -> np.ndarray:
+    """M[t, s] = max_k |const| + |x|.|lin| + x^2.quad of a CPU
+    ContinuousScorer, float64, in frame blocks."""
+    S_, K_ = sc.n_sen, sc.n_density
+    lin = sc.lin.double().reshape(S_ * K_, -1)
+    quad = sc.quad.double().reshape(S_ * K_, -1)
+    const = sc.const.double().reshape(1, S_ * K_).abs()
+    out = []
+    for lo in range(0, len(x), rows):
+        xb = torch.as_tensor(x[lo: lo + rows]).double()
+        out.append((const + xb.abs() @ lin.abs().T + (xb * xb) @ quad.T)
+                   .view(-1, S_, K_).amax(-1).numpy())
+    return np.concatenate(out)
+
+
+def hold_masked_task(spec, what: str, built, x, card_scores, card_mask
+                     ) -> dict:
+    """A worker's hold of a masked selector on the card ("gs": kept
+    clusters a frame, "kd": the kd-tree leaf a frame): the same selector
+    on the CPU over the same codebook or tree.  The masks' differences are
+    counted (the kd-tree's leaves compare the same f32 values and must be
+    equal); where a frame's masks agree, the scores within D * 2^-22 * M
+    plus 1e-5 relative (IEEE f32 products on both sides, sums, exp and log
+    in another order)."""
+    t0 = time.perf_counter()
+    fx = _cached(spec, lambda: fixture.build(spec[0], model=spec[1],
+                                             size=spec[2]))
+    sc = _cached((spec, "cont-scorer"),
+                 lambda: ContinuousScorer(fx.gauden, fx.ln_mixw,
+                                          device="cpu"))
+    xt = torch.as_tensor(x)
+    with torch.inference_mode():
+        if what == "gs":
+            cpu = approx.GsSelectorScorer(sc, fx.gauden, codebook=built,
+                                          device="cpu")
+            mask = cpu.clusters(xt).numpy()
+            agree = (mask == card_mask).all(1)
+        else:
+            cpu = approx.KdTreeSelectorScorer(sc, fx.gauden, KD_DEPTH,
+                                              tree=built, device="cpu")
+            mask = cpu.leaves(xt).numpy()
+            agree = mask == card_mask
+        want = cpu.score(xt).numpy().astype(np.float64)
+    bound = (x.shape[1] * 2.0 ** -22 * magnitude_cpu(x, sc)
+             + 1e-5 * np.abs(want))
+    err = np.abs(card_scores - want)[agree]
+    worst = float((err / bound[agree]).max(initial=0.0))
+    n_diff = int((~agree).sum())
+    return _train_verdict(worst <= 1.0 and (what == "gs" or n_diff == 0),
+                          {"scorer": what, "frames": len(x),
+                           "mask_frames_differing": n_diff,
+                           "max_abs_err": float(err.max(initial=0.0)),
+                           "worst_err_over_bound": worst}, t0, 0)
+
+
+def hold_subvq_task(spec, svq, x, card_scores, card_sl, beam: float
+                    ) -> dict:
+    """A worker's hold of SubVQScorer on the card: the CPU's codeword
+    densities, scores within 3 * 2^-20 * max|density| plus 1e-5 relative
+    (f32 products and sums in another order, as
+    tests/test_torch_subvq_senfh.py), and the shortlist's differences
+    counted, each within twice that bound of the beam's edge."""
+    t0 = time.perf_counter()
+    fx = _cached(spec, lambda: fixture.build(spec[0], model=spec[1],
+                                             size=spec[2]))
+    sc = subvq.SubVQScorer(svq, fx.ln_mixw, device="cpu")
+    xt = torch.as_tensor(x)
+    with torch.inference_mode():
+        tol = 3 * 2.0 ** -20 * float(sc.codeword_densities(xt).abs().max())
+        want = sc.score(xt).numpy().astype(np.float64)
+        sl = sc.shortlist(xt, beam).numpy()
+        ga = sc.gaussian_approx(xt).numpy()
+    card_sl = np.unpackbits(card_sl, count=sl.size).reshape(sl.shape) != 0
+    err = np.abs(card_scores - want)
+    worst = float((err / (tol + 1e-5 * np.abs(want))).max())
+    differ = sl != card_sl
+    edge = ga.max((1, 2), keepdims=True) - beam
+    off_edge = int((differ & (np.abs(ga - edge) > 2 * tol)).sum())
+    return _train_verdict(worst <= 1.0 and off_edge == 0,
+                          {"frames": len(x), "max_abs_err": float(err.max()),
+                           "worst_err_over_bound": worst,
+                           "shortlist_entries_differing": int(differ.sum()),
+                           "of_them_off_the_edge": off_edge,
+                           "shortlist_entries": int(sl.sum())}, t0, 0)
+
+
+def approx_frames(fx, dev, n: int = T_APPROX) -> np.ndarray:
+    """The first n frames of the fixture's utterances joined (features
+    computed on the card)."""
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    return np.concatenate(fp.compute_batch(fx.ceps))[:n]
+
+
+def timed_scorer(sc, x) -> dict:
+    """ms a call at x's shape (CUDA events, 3 calls after one warm-up) and
+    the peak device MB of a call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        sc.score(x)
+        torch.cuda.synchronize()
+        peak = peak_mb()
+        ms = cuda_ms(lambda: sc.score(x), reps=3)
+    return {"ms": ms, "peak_mb": peak}
+
+
+def decode_counted(search, fp, fx) -> tuple:
+    """The batch through decode_batch_cep, counted: (hyps, host tapes, K1
+    launches, wall s, WER dict)."""
+    torch.cuda.synchronize()
+    fused_mixture_scores.launches = 0
+    t0 = time.perf_counter()
+    hyps = search.decode_batch_cep(fx.ceps, fp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_mixture_scores.launches
+    tapes = [t.cpu().numpy() for t in search._last_batch[0]]
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, hyps))
+    n_ref = sum(len(r) for r in fx.transcripts)
+    return hyps, tapes, launches, {
+        "decode_s": wall, "xRT": fx.audio_seconds / wall,
+        "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref}
+
+
+def phase_approx(dev, fx, spec, holds: Holds, builds: dict) -> dict:
+    """The batch through DownsampledScorer(ds=2) and CigmmsScorer
+    (ci_pbeam=7) around ContinuousScorer (K1 once a batch), held against
+    the CPU search on the card's senone scores; GS and KdTree at
+    T=T_APPROX held against the CPU; every scorer's ms and peak MB."""
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    base = ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev)
+    out = {"phase": "approx", "decodes": {}, "T": T_APPROX}
+    scorers = {}
+    launches = 0
+    for kind in ("ds2", "cigmms7"):
+        sc = scorers[kind] = (
+            approx.DownsampledScorer(base, 2) if kind == "ds2" else
+            approx.CigmmsScorer(base, fx.mdef.cd2cisen, fx.mdef.n_ci_sen,
+                                7.0, device=dev))
+        search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device=dev)
+        hyps, tapes, n, r = decode_counted(search, fp, fx)
+        launches += n
+        out["decodes"][kind] = {"k1_launches": n, **r}
+        if n != 1:
+            emit(out)
+            raise AssertionError(f"approx {kind}: K1 launched {n} times")
+        submit_batch_holds(holds, f"approx/{kind}", spec, kind, {}, search,
+                           fp, fx, tapes, hyps, len(fx.ceps), e2e=False)
+        del search, tapes
+    x_host = approx_frames(fx, dev)
+    x = torch.as_tensor(x_host, device=dev)
+    (cb, gs_s), (tree, kd_s) = builds["gs"].get(), builds["kd"].get()
+    scorers["gs"] = approx.GsSelectorScorer(base, fx.gauden, codebook=cb,
+                                            device=dev)
+    scorers["kd"] = approx.KdTreeSelectorScorer(base, fx.gauden, KD_DEPTH,
+                                                tree=tree, device=dev)
+    with torch.inference_mode():
+        for what, mask in (("gs", "clusters"), ("kd", "leaves")):
+            sc = scorers[what]
+            holds.submit(f"approx/{what}", hold_masked_task, spec, what,
+                         cb if what == "gs" else tree, x_host,
+                         sc.score(x).double().cpu().numpy(),
+                         getattr(sc, mask)(x).cpu().numpy())
+    out["host_build_s"] = {"gs": gs_s, "kd": kd_s}
+    out["scorers"] = {k: timed_scorer(sc, x) for k, sc in scorers.items()}
+    out["scorers"]["cont"] = timed_scorer(base, x)
+    out["k1_launches"] = launches
+    out["kd_leaf_shortlist_mean"] = float(
+        scorers["kd"].leaf_keep.float().mean())
+    emit(out)
+    return out
+
+
+def phase_subvq(dev, fx, spec, holds: Holds, builds: dict) -> dict:
+    """build_subvq at the full width (in a hold worker), SubVQScorer and
+    its shortlist on the card against the CPU, then the batch decoded with
+    it as the scorer (held against the CPU search on its scores)."""
+    svq, build_s = builds["subvq"].get()
+    sc = subvq.SubVQScorer(svq, fx.ln_mixw, device=dev)
+    x_host = approx_frames(fx, dev)
+    x = torch.as_tensor(x_host, device=dev)
+    with torch.inference_mode():
+        scores = sc.score(x).double().cpu().numpy()
+        sl = sc.shortlist(x, SUBVQ_BEAM).cpu().numpy()
+    holds.submit("subvq/scores", hold_subvq_task, spec, svq, x_host, scores,
+                 np.packbits(sl), SUBVQ_BEAM)
+    timed = timed_scorer(sc, x)
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    hyps, tapes, n, r = decode_counted(search, fp, fx)
+    decode_peak = peak_mb()
+    submit_batch_holds(holds, "subvq", spec, "cont", {}, search, fp,
+                       fx, tapes, hyps, len(fx.ceps), e2e=False,
+                       count_own=False)
+    out = {"phase": "subvq", "n_sv": svq.n_sv, "vqsize": svq.vqsize,
+           "n_iter": SUBVQ_ITER, "n_restarts": SUBVQ_RESTARTS,
+           "defaults": {"n_iter": 20, "n_restarts": 3},
+           "host_build_s": build_s, "T": T_APPROX, "beam": SUBVQ_BEAM,
+           "shortlist_share": float(sl.mean()), **timed,
+           "decode": {**r, "peak_mb": decode_peak}, "k1_launches": n}
+    emit(out)
+    if n:
+        raise AssertionError(f"subvq: the decode launched K1 {n} times")
+    return out
+
+
+def phase_replay(dev, fx, tmp: str) -> dict:
+    """Utterance 0's K1 scores written with write_senscr and decoded
+    through ReplayScorer.from_file: the hypothesis of the live decode."""
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    sc = ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev)
+    search = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, sc, device=dev)
+    feats = fp.compute(fx.ceps[0])
+    fused_mixture_scores.launches = 0
+    live = search.decode(feats)
+    launches = fused_mixture_scores.launches
+    with torch.inference_mode():
+        scores = sc.score(torch.as_tensor(feats, device=dev)).cpu().numpy()
+    path = os.path.join(tmp, "u0.sen")
+    senfh.write_senscr(path, scores)
+    search.scorer = senfh.ReplayScorer.from_file(path, device=dev)
+    fused_mixture_scores.launches = 0
+    t0 = time.perf_counter()
+    replay = search.decode(feats)
+    replay_s = time.perf_counter() - t0
+    out = {"phase": "replay", "frames": len(feats), "n_sen": scores.shape[1],
+           "file_bytes": os.path.getsize(path), "k1_launches": launches,
+           "replay_k1_launches": fused_mixture_scores.launches,
+           "replay_decode_s": replay_s, "words": " ".join(live.words),
+           "words_equal": replay.words == live.words,
+           "segments_equal": segs(replay) == segs(live)}
+    emit(out)
+    if not out["words_equal"] or launches != 1 or out["replay_k1_launches"]:
+        raise AssertionError(f"replay: {out}")
+    return out
+
+
+def phase_endpoint(dev, fx) -> dict:
+    """FrameClassifier fitted on the card to the utterances' frames,
+    labelled SIL / speech by the card's AlignSearch (K1 once an
+    utterance); the utterances joined end to end classified and segmented
+    by Endpointer, held equal to the CPU's: the same classifier moved to
+    the CPU, and the CPU's own fit on the same labels."""
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    aligner = AlignSearch(fx.dict, fx.mdef, fx.tmat,
+                          ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
+                          device=dev)
+    feats = fp.compute_batch(fx.ceps)
+    fused_mixture_scores.launches = 0
+    labels = []
+    for f, words in zip(feats, fx.transcripts):
+        _, phones, _, _ = aligner.align(f, words)
+        lab = np.zeros(len(f), np.int64)
+        for p in phones:
+            if p.phone != "SIL":
+                lab[p.start_frame: p.end_frame + 1] = ep.CLASS_SPEECH
+        labels.append(lab)
+    launches = fused_mixture_scores.launches
+    x, y = np.concatenate(feats), np.concatenate(labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = ep.FrameClassifier.fit(x, y, 2, n_comp=EP_COMP, n_iter=EP_ITER,
+                                 device=dev)
+    fit_s = time.perf_counter() - t0
+    moved = copy.deepcopy(clf).cpu()
+    own = ep.FrameClassifier.fit(x, y, 2, n_comp=EP_COMP, n_iter=EP_ITER,
+                                 device="cpu")
+    ll, ll_cpu = clf.log_likelihoods(x), moved.log_likelihoods(x)
+    xt = torch.as_tensor(x, device=dev)
+    ll_ms = cuda_ms(lambda: clf.score(xt))
+    classes = clf.classify(x)
+    spans = {name: [(u.start_frame, u.end_frame)
+                    for u in ep.Endpointer(**EP_SPANS).segment(c)]
+             for name, c in (("card", classes),
+                             ("cpu_same", moved.classify(x)),
+                             ("cpu_fit", own.classify(x)))}
+    means_rel = float(np.max(np.abs(clf.means - own.means)
+                             / (np.abs(own.means) + 1e-3)))
+    out = {"phase": "endpoint", "frames": len(x),
+           "speech_share": float(y.mean()), "k1_launches": launches,
+           "fit_s": fit_s, "log_likelihood_ms": ll_ms,
+           "ll_max_abs_diff_vs_cpu": float(np.abs(ll - ll_cpu).max()),
+           "classes_differing_vs_cpu_same": int(
+               (classes != moved.classify(x)).sum()),
+           "fit_means_max_rel_diff_vs_cpu": means_rel,
+           "spans": len(spans["card"]), "first_spans": spans["card"][:4],
+           "spans_equal_cpu_same": spans["card"] == spans["cpu_same"],
+           "spans_equal_cpu_fit": spans["card"] == spans["cpu_fit"],
+           "frame_accuracy": float((clf.classify(x, 1) == y).mean())}
+    emit(out)
+    if not (out["spans_equal_cpu_same"] and out["spans_equal_cpu_fit"]) or \
+            launches != len(feats):
+        raise AssertionError(f"endpoint: {out}")
+    return out
+
+
+def path_score(built, scores, states) -> float:
+    """A state path's own score, re-summed on the host in float64."""
+    (ss, sv, _, _, M, entry_lp, fexit, _, _) = built
+    ll = np.where(sv[None], scores[:, ss], -1e30).astype(np.float64)
+    tot = entry_lp[states[0]] + ll[0, states[0]]
+    t = np.arange(1, len(states))
+    tot += (M[states[:-1], states[1:]] + ll[t, states[1:]]).sum()
+    return float(tot + fexit[states[-1]])
+
+
+def phase_align_tp(dev, fx) -> dict:
+    """align_time_parallel (n_chunks=ALIGN_TP_CHUNKS) of utterance 0 and of
+    the first four utterances joined, K1 once each: the score against the
+    card's sequential AlignSearch.align, and each path re-summed on the
+    host; ms against the sequential alignment."""
+    fp = FeatPipeline(fx.feat_config(), device=dev)
+    aligner = AlignSearch(fx.dict, fx.mdef, fx.tmat,
+                          ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
+                          device=dev)
+    feats = fp.compute_batch(fx.ceps[:4])
+    cases = {"utt0": (feats[0], fx.transcripts[0]),
+             "joined4": (np.concatenate(feats), sum(fx.transcripts[:4], []))}
+    out = {"phase": "align_tp", "n_chunks": ALIGN_TP_CHUNKS, "cases": {}}
+    launches, ok = 0, True
+    for name, (f, words) in cases.items():
+        align_time_parallel(aligner, f, words, n_chunks=ALIGN_TP_CHUNKS)
+        torch.cuda.synchronize()
+        fused_mixture_scores.launches = 0
+        t0 = time.perf_counter()
+        states, score = align_time_parallel(aligner, f, words,
+                                            n_chunks=ALIGN_TP_CHUNKS)
+        torch.cuda.synchronize()
+        tp_ms = 1e3 * (time.perf_counter() - t0)
+        n = fused_mixture_scores.launches
+        launches += n
+        t0 = time.perf_counter()
+        _, _, seq, seq_score = aligner.align(f, words)
+        torch.cuda.synchronize()
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+        built = aligner._build(words)
+        with torch.inference_mode():
+            scores = aligner.scorer.score(
+                torch.as_tensor(f, device=dev)).cpu().numpy()
+        own = path_score(built, scores, states)
+        own_seq = path_score(built, scores, np.asarray(seq))
+        T = len(f)
+        # 2T float32 additions on each side, each within half an ulp of a
+        # partial sum no larger than |score|.
+        rtol = 4 * T * 2.0 ** -24
+        r = {"T": T, "S": int(built[4].shape[0]),
+             "P": int(_pred_table(built[4])[0].shape[1]), "k1_launches": n,
+             "ms": tp_ms, "sequential_ms": seq_ms, "score": score,
+             "sequential_score": seq_score,
+             "score_rel_diff": abs(score - seq_score) / abs(seq_score),
+             "path_resummed_rel_diff": abs(own - score) / abs(score),
+             "sequential_path_resummed_rel_diff":
+                 abs(own_seq - seq_score) / abs(seq_score),
+             "rtol": rtol, "states_differing": int(
+                 (states != np.asarray(seq)).sum())}
+        out["cases"][name] = r
+        ok &= (n == 1 and r["score_rel_diff"] <= rtol
+               and r["path_resummed_rel_diff"] <= rtol)
+    out["k1_launches"] = launches
+    emit(out)
+    if not ok:
+        raise AssertionError(f"align_tp: {out}")
+    return out
+
+
+def phase_multi_rank(dev, fx) -> dict:
+    """dryrun_multichip over a real NCCL group of one rank (two NCCL ranks
+    cannot share one card): its sharded EM step, partition contract and
+    data-parallel decodes of the slice (mpx and tree), each held to the
+    one-process run."""
+    fused_mixture_scores.launches = 0
+    t0 = time.perf_counter()
+    res = dryrun_multichip(1, "cuda", fx=fx, rank=0,
+                           coordinator=f"localhost:{free_port()}")
+    out = {"phase": "multi_rank", "seconds": time.perf_counter() - t0,
+           "k1_launches": fused_mixture_scores.launches, **res}
+    emit(out)
+    if out["backend"] != "nccl" or out["k1_launches"] != 4:
+        raise AssertionError(f"multi_rank: {out}")
+    return out
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     info = phase_device()
@@ -1964,6 +2444,8 @@ def main() -> int:
 def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     """Every phase after the device's, in an order that hands the longest
     CPU holds to the workers first; returns the kernel table."""
+    cont_spec = (SEED, "cont", fixture.FULL)
+    builds = submit_builds(holds, cont_spec)
     phase_build()
     exps = info["exps_per_s"]
     check_k1(dev, floored=False, modes=MODES, exps_per_s=exps)
@@ -1973,12 +2455,15 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     k1_stream = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps,
                          T=T_STREAM)
     k1_loop = phase_k1_wide(dev, exps)
-    cont_spec = (SEED, "cont", fixture.FULL)
     cont = fixture.build(SEED)
     grammar = phase_grammar(dev, cont, tmp, holds)
     train = phase_train(dev, holds, tmp)
     phase_train_pipeline(dev, cont, tmp)
     phase_train_semicont(dev, cont, holds)
+    rest = [phase_approx(dev, cont, cont_spec, holds, builds),
+            phase_subvq(dev, cont, cont_spec, holds, builds),
+            phase_replay(dev, cont, tmp), phase_endpoint(dev, cont),
+            phase_align_tp(dev, cont), phase_multi_rank(dev, cont)]
     card = info["nvidia_smi"]
     phase_large_vocab(dev, card, "large_vocab_static",
                       (SEED, "semi", fixture.LARGE_5K), "ps", "flat", "rows",
@@ -2020,7 +2505,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
         "launches": sum(p["k1_launches"] for p in (
             sl, dec, tree, stream, stream_tree, dec_stream, lat, dec_wide,
-            grammar, align, options, train)),
+            grammar, align, options, train, *rest)),
         **{k: k1["highest"][k] for k in keys},
         "stream_shape": {"T": T_STREAM, **{k: k1_stream["highest"][k]
                                            for k in keys}},

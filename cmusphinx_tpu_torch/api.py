@@ -213,6 +213,10 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def _init_scorer(self, cfg, gauden, model_file):
+        """The scorer the model selects.  `-gmmprec` reaches (and is checked
+        by) ContinuousScorer only; the other scorers ignore it unchecked, as
+        the reference does: no up-front check for every scorer type (a
+        deliberate divergence from that advice, ROADMAP A-x)."""
         sendump = model_file("sendump", "sendump")
         mixw_path = model_file("mixw", "mixture_weights")
         slices = self.fp.stream_slices()

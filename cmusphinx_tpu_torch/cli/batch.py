@@ -1,7 +1,7 @@
 """Batch decoder CLI (pocketsphinx_batch capability).
 
-Port of `cmusphinx_tpu/cli/batch.py` (`BATCH_ARGS`, `parse_argv`, `main`)
-and of `cmusphinx_tpu/parallel/hosts.py`'s `partition_ctl`.  Reference:
+Port of `cmusphinx_tpu/cli/batch.py` (`BATCH_ARGS`, `parse_argv`, `main`).
+Reference:
 pocketsphinx/src/programs/batch.c — control-file driven batch decode with
 hypothesis/hypseg/lattice output and an xRT report (:759-777 "AVERAGE
 xRT").  Usage:
@@ -12,10 +12,11 @@ xRT").  Usage:
         [-nbest N -nbestdir DIR] [-part i -npart N] [-platform cpu]
 
 It decodes on the card unless `-platform cpu` is given.  `-part`/`-npart`
-select one partition of the control file; a run of several processes that
-picks its partition itself (`-npart N` without `-part`) is ROADMAP A17 and
-raises NotImplementedError; a single process decodes the whole file, as the
-reference does on one host.
+select one partition of the control file.  With `-npart N` and no `-part`,
+a process of a multi-process run (torchrun's environment, see
+`parallel.hosts.init_distributed`: NCCL on the card, gloo with `-platform
+cpu`) takes partition rank+1 of N; a single process decodes the whole
+file, as the reference does on one host.
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import List, Sequence
+
+import torch.distributed as dist
 
 from ..api import DECODER_ARGS, Decoder
 from ..decode.ngram_search import NGRAM_ARGS
 from ..frontend.fe import FE_ARGS
 from ..frontend.feat import FEAT_ARGS
+from ..parallel.hosts import init_distributed, partition_ctl
 from ..utils.config import Arg, Config
 from ..utils.log import E_ERROR, E_INFO, err_set_debug_level, err_set_logfile
 from ..utils.profile import Profile
@@ -45,9 +48,8 @@ BATCH_ARGS = [
     Arg("nbest", int, 0, "Number of N-best hypotheses to write per utterance"),
     Arg("part", int, 0,
         "Process only partition `part` of `npart` of the control file "
-        "(1-based; bw/sphinx3 -part semantics, corpus.c).  With 0, a "
-        "multi-process run would select its own partition (not ported "
-        "yet, ROADMAP A17)"),
+        "(1-based; bw/sphinx3 -part semantics, corpus.c).  With 0, each "
+        "process of a multi-process run takes partition rank+1"),
     Arg("npart", int, 0, "Total number of control-file partitions"),
     Arg("platform", str, "", "Device: 'cpu', else the CUDA card"),
     Arg("logfn", str, "", "Log file (err.h err_set_logfile)"),
@@ -82,24 +84,6 @@ def device_of(cfg: Config) -> str:
     return "cpu" if str(cfg["platform"]).lower() == "cpu" else "cuda"
 
 
-def partition_ctl(items: Sequence, part: int, npart: int) -> List:
-    """The bw/sphinx3 `-part i -npart N` ctl split (corpus.c
-    corpus_set_partition: contiguous blocks, remainder spread over the
-    first parts; 1-based part ids like the reference flags)."""
-    if not (1 <= part <= npart):
-        raise ValueError(f"part must be in [1, {npart}], got {part}")
-    n = len(items)
-    base, rem = divmod(n, npart)
-    sizes = [base + (1 if i < rem else 0) for i in range(npart)]
-    lo = sum(sizes[: part - 1])
-    return list(items[lo : lo + sizes[part - 1]])
-
-
-def _num_processes() -> int:
-    """The size of the run, as torch.distributed's launchers give it."""
-    return int(os.environ.get("WORLD_SIZE") or 1)
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kv = parse_argv(argv)
@@ -110,6 +94,16 @@ def main(argv=None) -> int:
     if str(cfg["logfn"]):
         err_set_logfile(str(cfg["logfn"]))
     err_set_debug_level(int(cfg["debug"]))
+    # Corpus partitioning (bw -part/-npart; a multi-process run picks its
+    # own part), before the Decoder: a rank's card is chosen on joining.
+    npart, part = int(cfg["npart"]), int(cfg["part"])
+    joined = False
+    if npart > 1 and part == 0:
+        up = dist.is_initialized()
+        info = init_distributed(device=device_of(cfg))
+        joined = info.initialized and not up
+        if info.num_processes > 1:
+            part = info.process_id + 1
     prof = Profile()
     with prof.timer("init"):
         dec = Decoder(cfg, device=device_of(cfg))
@@ -121,12 +115,6 @@ def main(argv=None) -> int:
 
     with open(str(cfg["ctl"])) as fh:
         ctl = [l.strip() for l in fh if l.strip()]
-    # Corpus partitioning (bw -part/-npart).
-    npart, part = int(cfg["npart"]), int(cfg["part"])
-    if npart > 1 and part == 0 and _num_processes() > 1:
-        raise NotImplementedError(
-            "a multi-process run choosing its own -part is not ported yet "
-            "(ROADMAP A17); give each process -part explicitly")
     if npart > 1 and part > 0:
         ctl = partition_ctl(ctl, part, npart)
         E_INFO("processing partition %d/%d: %d utterances",
@@ -197,6 +185,8 @@ def main(argv=None) -> int:
         E_ERROR("%d/%d utterances FAILED and were skipped: %s",
                 len(skipped), len(ctl), " ".join(skipped))
         print(f"SKIPPED {len(skipped)}: {' '.join(skipped)}")
+    if joined:
+        dist.destroy_process_group()
     return 0
 
 

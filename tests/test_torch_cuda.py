@@ -23,6 +23,7 @@ On a machine with the card (which has no JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import faulthandler
 
 import numpy as np
@@ -670,3 +671,161 @@ def test_train_em_step_at_k32_on_card(cuda):
                                    atol=0.1 * rtol * np.abs(b).max(),
                                    err_msg=k)
 
+
+
+# ---- approximate and replayed scoring, the endpointer, time-parallel
+# alignment and the multi-process dry run on the card ----------------------
+
+def _small_feats():
+    fx = fixture.build(0, size=fixture.SMALL)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    return fx, np.concatenate([fp.compute(c) for c in fx.ceps])
+
+
+def test_products_run_in_ieee_f32(cuda):
+    """TF32 stays off for every plain f32 product of the port (the package
+    switches it off at import): the flags, and a product whose TF32
+    rounding (2^-11 relative) would show against float64."""
+    import cmusphinx_tpu_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(256, 39, generator=g) * 30 + 100
+    b = torch.randn(39, 512, generator=g)
+    got = (a.to(cuda) @ b.to(cuda)).cpu().double()
+    want = a.double() @ b.double()
+    bound = 39 * 2.0 ** -23 * (a.double().abs() @ b.double().abs())
+    assert bool(((got - want).abs() <= bound).all())
+
+
+def test_approx_scorers_on_card_match_cpu(cuda):
+    from cmusphinx_tpu_torch.ops import approx
+    fx, x = _small_feats()
+    gpu = ContinuousScorer(fx.gauden, fx.ln_mixw, device=cuda)
+    cpu = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+    xg, xc = torch.as_tensor(x, device=cuda), torch.as_tensor(x)
+    M = _magnitude(xc, cpu.lin, cpu.quad, cpu.const).numpy()
+    D = x.shape[1]
+    m = fx.mdef
+    # Around K1: its 3xTF32 products against the CPU's IEEE f32 ones.
+    for g, c in ((approx.DownsampledScorer(gpu, 3),
+                  approx.DownsampledScorer(cpu, 3)),
+                 (approx.CigmmsScorer(gpu, m.cd2cisen, m.n_ci_sen, 7.0,
+                                      device=cuda),
+                  approx.CigmmsScorer(cpu, m.cd2cisen, m.n_ci_sen, 7.0,
+                                      device="cpu"))):
+        fused_mixture_scores.launches = 0
+        out = g.score(xg)
+        assert out.device.type == "cuda" and fused_mixture_scores.launches == 1
+        err = np.abs(out.cpu().double().numpy() - c.score(xc).numpy())
+        assert np.all(err <= SAME_BOUND["highest"] * D * 2.0 ** -22 * M)
+    # The masked selectors: IEEE f32 both sides, where the masks agree.
+    codebook = approx.vq_codebook(fx.gauden, 16)
+    for g, c, mask in (
+            (approx.GsSelectorScorer(gpu, fx.gauden, codebook=codebook,
+                                     device=cuda),
+             approx.GsSelectorScorer(cpu, fx.gauden, codebook=codebook,
+                                     device="cpu"), "clusters"),
+            (approx.KdTreeSelectorScorer(gpu, fx.gauden, depth=4,
+                                         radius=1.5, device=cuda),
+             approx.KdTreeSelectorScorer(cpu, fx.gauden, depth=4,
+                                         radius=1.5, device="cpu"),
+             "leaves")):
+        km, kc = getattr(g, mask)(xg).cpu(), getattr(c, mask)(xc)
+        agree = (km == kc) if km.dim() == 1 else (km == kc).all(1)
+        if mask == "leaves":
+            assert bool(agree.all())
+        assert int((~agree).sum()) <= 2
+        out = g.score(xg)
+        assert out.device.type == "cuda"
+        err = np.abs(out.cpu().double().numpy() - c.score(xc).numpy())
+        ok = agree.numpy()
+        assert np.all(err[ok] <= D * 2.0 ** -22 * M[ok])
+
+
+def test_subvq_and_replay_on_card_match_cpu(cuda, tmp_path):
+    from cmusphinx_tpu_torch.ops.subvq import SubVQScorer, build_subvq
+    from cmusphinx_tpu_torch.utils.senfh import ReplayScorer, write_senscr
+    fx, x = _small_feats()
+    svq = build_subvq(fx.gauden, vqsize=16, n_iter=4, n_restarts=1)
+    g = SubVQScorer(svq, fx.ln_mixw, device=cuda)
+    c = SubVQScorer(svq, fx.ln_mixw, device="cpu")
+    xg, xc = torch.as_tensor(x, device=cuda), torch.as_tensor(x)
+    dens = c.codeword_densities(xc)
+    tol = 3 * 2.0 ** -20 * float(dens.abs().max())
+    out = g.score(xg)
+    assert out.device.type == "cuda"
+    np.testing.assert_allclose(out.cpu().numpy(), c.score(xc).numpy(),
+                               rtol=0, atol=tol)
+    sl, slc = g.shortlist(xg, 10.0).cpu(), c.shortlist(xc, 10.0)
+    assert int((sl != slc).sum()) <= 2
+    path = str(tmp_path / "u.sen")
+    write_senscr(path, c.score(xc).numpy())
+    r = ReplayScorer.from_file(path, device=cuda)
+    out = r.score(torch.zeros((2, len(x) + 5, 39), device=cuda))
+    assert out.device.type == "cuda" and out.shape == (2, len(x) + 5,
+                                                       svq.map.shape[0])
+    np.testing.assert_array_equal(
+        out[1].cpu().numpy(),
+        ReplayScorer.from_file(path, device="cpu").score(
+            torch.zeros((len(x) + 5, 39))).numpy())
+
+
+def test_frame_classifier_on_card_matches_cpu(cuda):
+    from cmusphinx_tpu_torch.frontend.ep import Endpointer, FrameClassifier
+    fx, x = _small_feats()
+    labels = (x[:, 0] > np.median(x[:, 0])).astype(np.int64)
+    g = FrameClassifier.fit(x, labels, 2, n_comp=4, n_iter=6, device=cuda)
+    c = FrameClassifier.fit(x, labels, 2, n_comp=4, n_iter=6, device="cpu")
+    assert g.lin.device.type == "cuda"
+    np.testing.assert_allclose(g.means, c.means, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(g.var, c.var, rtol=1e-4)
+    same = copy.deepcopy(c).to(cuda)        # the CPU's buffers, moved
+    ll, llc = same.log_likelihoods(x), c.log_likelihoods(x)
+    xd = x.astype(np.float64)
+    M = (np.abs(c.const.double().numpy())[None] + np.abs(xd) @ np.abs(
+        c.lin.double().numpy()) + (xd * xd) @ c.quad.double().numpy())
+    M = M.reshape(len(x), 2, 4).max(-1)
+    assert np.all(np.abs(ll.astype(np.float64) - llc)
+                  <= x.shape[1] * 2.0 ** -22 * M)
+    classes = same.classify(x)
+    np.testing.assert_array_equal(classes, c.classify(x))
+    assert [(u.start_frame, u.end_frame) for u in
+            Endpointer().segment(classes)] == \
+        [(u.start_frame, u.end_frame) for u in
+         Endpointer().segment(c.classify(x))]
+
+
+def test_align_time_parallel_on_card_matches_cpu(cuda):
+    from cmusphinx_tpu_torch.decode.align import AlignSearch
+    from cmusphinx_tpu_torch.decode.align_tp import align_time_parallel
+    fx, _ = _small_feats()
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    feats = np.concatenate([fp.compute(c) for c in fx.ceps])
+    words = sum(fx.transcripts, [])
+    ga = AlignSearch(fx.dict, fx.mdef, fx.tmat,
+                     ContinuousScorer(fx.gauden, fx.ln_mixw, device=cuda),
+                     device=cuda)
+    ca = AlignSearch(fx.dict, fx.mdef, fx.tmat,
+                     ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu"),
+                     device="cpu")
+    fused_mixture_scores.launches = 0
+    st, sc = align_time_parallel(ga, feats, words, n_chunks=8)
+    assert fused_mixture_scores.launches == 1
+    st2, sc2 = align_time_parallel(ga, feats, words, n_chunks=8,
+                                   devices=[cuda, cuda])
+    np.testing.assert_array_equal(st, st2)
+    assert sc == sc2
+    _, _, seq, seq_score = ga.align(feats, words)
+    rel = 4 * len(feats) * 2.0 ** -24
+    assert sc == pytest.approx(seq_score, rel=rel)
+    stc, scc = align_time_parallel(ca, feats, words, n_chunks=8)
+    assert sc == pytest.approx(scc, rel=rel)
+    assert len(st) == len(feats)
+
+
+def test_dryrun_over_nccl_one_rank(cuda):
+    from cmusphinx_tpu_torch.parallel.dryrun import dryrun_multichip
+    out = dryrun_multichip(1, "cuda")
+    assert out["backend"] == "nccl" and out["ranks"] == 1
+    assert out["decode"]["tree"]["int_values_differing"] == 0

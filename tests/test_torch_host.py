@@ -1,8 +1,9 @@
 """The port's own copies of the host modules (model readers and writers,
 the grammar models, binary I/O, configuration, the LM estimator, the
-lexicon-graph builder, and the trainer's numpy code: sentence HMMs, model
-export, decision trees and the copied functions of the pipeline, the
-transforms, semi-continuous training and MMIE)
+lexicon-graph builder, the frontend's pitch tracker and CDCN, and the
+trainer's numpy code: sentence HMMs, model export, decision trees and the
+copied functions of the pipeline, the transforms, semi-continuous training
+and MMIE)
 read and build exactly what the reference package's originals do, and no
 file of the port imports JAX, optax or the reference package."""
 
@@ -16,6 +17,8 @@ import numpy as np
 import pytest
 
 from cmusphinx_tpu.decode import lexgraph as j_lexgraph
+from cmusphinx_tpu.frontend import cdcn as j_cdcn
+from cmusphinx_tpu.frontend import pitch as j_pitch
 from cmusphinx_tpu.lm import estimate as j_estimate
 from cmusphinx_tpu.models import cfg as j_cfg
 from cmusphinx_tpu.models import dict as j_dict
@@ -42,6 +45,8 @@ from cmusphinx_tpu.utils import config as j_config
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.decode import lexgraph as t_lexgraph
 from cmusphinx_tpu_torch.decode.ngram_search import NgramVocab
+from cmusphinx_tpu_torch.frontend import cdcn as t_cdcn
+from cmusphinx_tpu_torch.frontend import pitch as t_pitch
 from cmusphinx_tpu_torch.frontend.feat import FEAT_ARGS
 from cmusphinx_tpu_torch.lm import estimate as t_estimate
 from cmusphinx_tpu_torch.models import cfg as t_cfg
@@ -400,6 +405,37 @@ def test_train_copies_match_reference(case, tmp_path):
                 _train(case, _PORT_TRAIN, str(tmp_path)))
 
 
+def _frontend(case, mods):
+    """What one package's pitch tracker or CDCN computes from seeded
+    inputs (the reference tests' signals)."""
+    rng = np.random.RandomState(4)
+    if case == "pitch":
+        t = np.arange(8000) / 16000.0
+        voiced = np.sin(2 * np.pi * 150.0 * t) + 0.3 * np.sin(
+            2 * np.pi * 300.0 * t)
+        x = np.concatenate([voiced, rng.randn(4000) * 0.3, voiced * 0.5])
+        return (mods["pitch"].yin_pitch(x),
+                mods["pitch"].yin_pitch(x, 8000.0, fmin=80.0, threshold=0.2),
+                mods["pitch"].yin_pitch(x[:100]))
+    cd = mods["cdcn"]
+    means = rng.randn(6, 13) * 2.0
+    means[:, 0] = np.linspace(4.0, 10.0, 6)
+    x = means[rng.randint(0, 6, 300)] + rng.randn(300, 13) * 0.15
+    tilt = np.zeros(13)
+    tilt[:3] = [1.5, -0.8, 0.4]
+    noise = np.zeros(13)
+    noise[0] = 2.5
+    z = x + tilt + cd._softplus_spec(noise[None] - tilt[None] - x)
+    model = cd.train_cdcn([x], n_codes=8, n_iter=8)
+    return model, model.norm(z, n_iter=4), cd._cosine_matrix()
+
+
+@pytest.mark.parametrize("case", ["pitch", "cdcn"])
+def test_frontend_copies_match_reference(case):
+    assert_same(_frontend(case, {"pitch": j_pitch, "cdcn": j_cdcn}),
+                _frontend(case, {"pitch": t_pitch, "cdcn": t_cdcn}))
+
+
 def _imports(path):
     """Absolute module names that a file imports."""
     out = []
@@ -423,7 +459,10 @@ def test_no_port_file_imports_jax_or_the_reference():
         "decode/fsg_search", "decode/align", "decode/phone_loop",
         "train/__init__", "train/bw", "train/trainer", "train/sentence_hmm",
         "train/model_io", "train/pipeline", "train/dtree", "train/semicont",
-        "train/mmie", "train/transform", "train/vtln")} <= names
+        "train/mmie", "train/transform", "train/vtln", "frontend/ep",
+        "frontend/pitch", "frontend/cdcn", "ops/approx", "ops/subvq",
+        "utils/senfh", "decode/align_tp", "parallel/hosts",
+        "parallel/dryrun")} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "optax",

@@ -230,3 +230,73 @@ def test_trains_with_jax_blocked():
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "TRAIN [True, True, True]" in r.stdout
+
+
+_DEVICE_REST_WITHOUT_JAX = r"""
+import sys, tempfile
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["cmusphinx_tpu"] = None  # and any of the reference package
+import numpy as np
+import torch
+from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.decode.align import AlignSearch
+from cmusphinx_tpu_torch.decode.align_tp import align_time_parallel
+from cmusphinx_tpu_torch.frontend import FeatPipeline
+from cmusphinx_tpu_torch.frontend.cdcn import train_cdcn
+from cmusphinx_tpu_torch.frontend.ep import Endpointer, FrameClassifier
+from cmusphinx_tpu_torch.frontend.pitch import yin_pitch
+from cmusphinx_tpu_torch.ops import ContinuousScorer
+from cmusphinx_tpu_torch.ops.approx import (CigmmsScorer, DownsampledScorer,
+                                            GsSelectorScorer,
+                                            KdTreeSelectorScorer)
+from cmusphinx_tpu_torch.ops.subvq import SubVQScorer, build_subvq
+from cmusphinx_tpu_torch.parallel import init_distributed
+from cmusphinx_tpu_torch.utils.senfh import ReplayScorer, write_senscr
+fx = fixture.build(0, size=fixture.SMALL)
+fp = FeatPipeline(fx.feat_config(), device="cpu")
+sc = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+feats = fp.compute(fx.ceps[0])
+x = torch.as_tensor(feats)
+ok = []
+for s in (DownsampledScorer(sc, 2),
+          CigmmsScorer(sc, fx.mdef.cd2cisen, fx.mdef.n_ci_sen, device="cpu"),
+          GsSelectorScorer(sc, fx.gauden, n_clusters=8, device="cpu"),
+          KdTreeSelectorScorer(sc, fx.gauden, depth=3, device="cpu"),
+          SubVQScorer(build_subvq(fx.gauden, vqsize=8, n_iter=2,
+                                  n_restarts=1), fx.ln_mixw, device="cpu")):
+    ok.append(bool(torch.isfinite(s.score(x)).all()))
+s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, DownsampledScorer(sc, 2),
+                device="cpu")
+ok.append(s.decode_batch_cep(fx.ceps, fp)[0].words == fx.transcripts[0])
+with tempfile.TemporaryDirectory() as tmp:
+    write_senscr(tmp + "/u.sen", sc.score(x).numpy())
+    s.scorer = ReplayScorer.from_file(tmp + "/u.sen", device="cpu")
+    ok.append(s.decode(feats).words == fx.transcripts[0])
+al = AlignSearch(fx.dict, fx.mdef, fx.tmat, sc, device="cpu")
+states, score = align_time_parallel(al, feats, fx.transcripts[0])
+ok.append(abs(score - al.align(feats, fx.transcripts[0])[3]) < 1.0)
+labels = (feats[:, 0] > np.median(feats[:, 0])).astype(np.int64)
+clf = FrameClassifier.fit(feats, labels, 2, n_iter=2, device="cpu")
+classes = clf.classify(feats)
+ok.append(len(classes) == len(feats)
+          and isinstance(Endpointer().segment(classes), list))
+ok.append(len(yin_pitch(fixture.synthetic_pcm(0, 0.5))) > 0)
+ok.append(train_cdcn([fx.ceps[0].astype(np.float64)], n_codes=4,
+                     n_iter=2).means.shape == (4, 13))
+ok.append(init_distributed(device="cpu").num_processes == 1)
+assert not any(m.split(".")[0] in ("jax", "cmusphinx_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+print("REST", ok)
+"""
+
+
+def test_approx_replay_align_tp_ep_parallel_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    r = subprocess.run([sys.executable, "-c", _DEVICE_REST_WITHOUT_JAX],
+                       env=env, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "REST [" + ", ".join(["True"] * 12) + "]" in r.stdout

@@ -264,12 +264,14 @@ def test_batch_cli_partitions(model_dirs, tmp_path, capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "u1: " in out and "u0: " not in out
     # One process and -npart without -part: the whole file, as the
-    # reference decodes it on one host; several processes: not ported.
+    # reference decodes it on one host; several processes pick their part
+    # (tests/test_torch_parallel.py runs two), and need a coordinator.
     assert batch.main(argv + ["-npart", "2"]) == 0
     out = capsys.readouterr().out
     assert "u0: " in out and "u1: " in out
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="coordinator"):
         batch.main(argv + ["-npart", "2"])
     assert batch.device_of({"platform": ""}) == "cuda"
     assert batch.device_of({"platform": "cpu"}) == "cpu"
