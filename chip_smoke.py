@@ -159,16 +159,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    host, within 4 T 2^-24 relative; ms against the sequential alignment;
    S, P and T.
 28. multi_rank: parallel.dryrun.dryrun_multichip(1, "cuda") over a real
-   NCCL group of one rank: a sharded EM step against em_step, the
-   -part/-npart accumulators against the single pass, and data-parallel
-   decodes of the slice (mpx and tree) gathered and held to the
-   one-process decode (K1 four times).
+   NCCL group of one rank (the mesh dp=1 x mp=1): a sharded EM step
+   against em_step, the -part/-npart accumulators against the single
+   pass, and data-parallel decodes of the slice (mpx and tree; K1 four
+   times) and of the SMALL semi-continuous fixture (PsParityScorer)
+   gathered and held to the one-process decode.
+29. senone_shards: parallel.senone_shard's shards, scored and joined by
+   score_parts (the dry run's mp axis scored shard by shard on one card)
+   at mp = 2 and 3: K1 on the shards of the slice's ContinuousScorer
+   (S=5150, K=32, T=2000) in each mode, and PsParityScorer's epilogue on
+   slices of its 8- and 4-bit mixture weights (S=5150, K=256, T=2000),
+   each bit-equal to the unsharded scores (else the first index that
+   differs); the ms of each of those shards' calls beside the unsharded
+   call's (CUDA events).
+30. tools: cli.tools fe over a control file of seeded PCM on the card,
+   its cepstra held to `-platform cpu`'s within the decoder phase's
+   bound; cli.lmtool train from the slice's transcripts to ARPA and
+   cli.tools lm2fst of it (host only, timed).
+31. mfu: utils.mfu's report for K1 at T=9,600 (phase 3's times) and
+   PsParityScorer at T=2000 (phase 5's), beside the card's name and
+   power limit.
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
-23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 6, 7, 13
-and 19.
+23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
+13, 30, 19 and 31.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -180,6 +196,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import io
 import functools
 import json
 import multiprocessing
@@ -216,8 +233,11 @@ from cmusphinx_tpu_torch.train.trainer import Trainer, device_params, host_acc
 from cmusphinx_tpu_torch.train.transform import (class_scatter_stats,
                                                  estimate_mllt,
                                                  mllt_objective)
+from cmusphinx_tpu_torch.cli import lmtool, tools
 from cmusphinx_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
-from cmusphinx_tpu_torch.utils import native, senfh
+from cmusphinx_tpu_torch.parallel.senone_shard import score_parts, shards
+from cmusphinx_tpu_torch.utils import mfu, native, senfh
+from cmusphinx_tpu_torch.utils.bio import read_mfc
 from cmusphinx_tpu_torch.utils.bio import write_mfc
 
 SEED = 0
@@ -314,6 +334,10 @@ SUBVQ_NSV, SUBVQ_SIZE, SUBVQ_ITER, SUBVQ_RESTARTS, SUBVQ_BEAM = (
 EP_COMP, EP_ITER = 4, 10
 EP_SPANS = {"end_window": 20, "pad_before": 5, "pad_after": 5}
 ALIGN_TP_CHUNKS = 8
+# Phase 29: the mp shard counts (3 leaves a remainder of S=5150).
+SHARD_MPS = (2, 3)
+# Phase 30: seeded PCM files through `tools fe`, their seconds.
+TOOLS_PCM_S = (1.0, 2.0, 3.0)
 
 
 # The host clock at the start of main: each phase's line carries the
@@ -665,15 +689,19 @@ def check_psparity(dev, fx, raw, wrap: bool, x_cpu) -> dict:
     return r
 
 
-def phase_semicont_scorer(dev, fx) -> dict:
-    x_cpu = torch.as_tensor(semi_inputs(fx, T_SEMI))
+def sendumps(fx) -> tuple:
+    """The fixture's 8-bit sendump bytes, and a 4-bit one: bytes of a
+    16-entry codebook whose values up to 255 make the uint8 wrap happen."""
     raw8, meta = fixture.sendump_bytes(fx)
     assert meta["n_bits"] == 8
-    # A 4-bit sendump holds bytes of a 16-entry codebook; values up to 255
-    # make the uint8 wrap happen.
     rng = np.random.RandomState(SEED + 5)
     cb = np.sort(rng.choice(256, 16, replace=False)).astype(np.uint8)
-    raw4 = cb[rng.randint(16, size=raw8.shape)]
+    return raw8, cb[rng.randint(16, size=raw8.shape)]
+
+
+def phase_semicont_scorer(dev, fx) -> dict:
+    x_cpu = torch.as_tensor(semi_inputs(fx, T_SEMI))
+    raw8, raw4 = sendumps(fx)
     out = {"phase": "semicont_scorer", "S": raw8.shape[2],
            "K": fx.gauden.n_density, "streams": fx.gauden.veclen,
            "topn": TOPN, "T": T_SEMI,
@@ -2407,18 +2435,169 @@ def phase_align_tp(dev, fx) -> dict:
 
 def phase_multi_rank(dev, fx) -> dict:
     """dryrun_multichip over a real NCCL group of one rank (two NCCL ranks
-    cannot share one card): its sharded EM step, partition contract and
-    data-parallel decodes of the slice (mpx and tree), each held to the
-    one-process run."""
+    cannot share one card, so the mesh is dp=1 x mp=1): its sharded EM
+    step, partition contract and data-parallel decodes of the slice (mpx
+    and tree, K1 twice each) and of the SMALL semi-continuous fixture
+    (PsParityScorer), each held to the one-process run."""
     fused_mixture_scores.launches = 0
     t0 = time.perf_counter()
     res = dryrun_multichip(1, "cuda", fx=fx, rank=0,
                            coordinator=f"localhost:{free_port()}")
     out = {"phase": "multi_rank", "seconds": time.perf_counter() - t0,
-           "k1_launches": fused_mixture_scores.launches, **res}
+           **res, "k1_launches": fused_mixture_scores.launches}
     emit(out)
-    if out["backend"] != "nccl" or out["k1_launches"] != 4:
+    if out["backend"] != "nccl" or out["k1_launches"] != 4 or \
+            (out["dp"], out["mp"]) != (1, 1) or \
+            out["decode"]["semi"]["scorer"] != "PsParityScorer":
         raise AssertionError(f"multi_rank: {out}")
+    return out
+
+
+def first_difference(got, want) -> list:
+    """The (t, s) index of the first score that differs, else []."""
+    idx = (got != want).nonzero()
+    return [int(v) for v in idx[0]] if len(idx) else []
+
+
+def check_shards(sc, x, name: str) -> tuple:
+    """The mp shards of `sc` (`shards`) scored on x and joined
+    (`score_parts`, the body of `score_shards`) at each of SHARD_MPS,
+    against the unsharded call, bit for bit; the ms of the unsharded call
+    and of each of those shards' calls (CUDA events); K1's launches by
+    the joined scoring."""
+    want = sc.score(x)
+    out, launches = {"unsharded_ms": cuda_ms(lambda: sc.score(x))}, 0
+    for mp in SHARD_MPS:
+        parts = shards(sc, mp)
+        before = fused_mixture_scores.launches
+        got = score_parts(parts, x)
+        torch.cuda.synchronize()
+        launches += fused_mixture_scores.launches - before
+        first = first_difference(got, want)
+        out[f"mp={mp}"] = {
+            "equal": not first and got.shape == want.shape,
+            "first_difference": first,
+            "shard_ms": [cuda_ms(lambda p=p: p.score(x)) for p in parts]}
+        if not out[f"mp={mp}"]["equal"]:
+            emit({"phase": "senone_shards", "failed": name, **out})
+            raise AssertionError(f"senone shards of {name} at mp={mp} "
+                                 f"differ from the unsharded scores at "
+                                 f"(t, s) = {first}")
+    return out, launches
+
+
+def phase_senone_shards(dev, cont, semi) -> dict:
+    """Senone shards at mp = 2 and 3 (the reference dry run's mp axis on one
+    card): K1 on senone shards of the FULL continuous scorer in each mode,
+    and PsParityScorer's epilogue on slices of the mixture weights (8- and
+    4-bit) at S=5150, K=256; each bit-equal to the unsharded scores."""
+    x = torch.as_tensor(approx_frames(cont, dev, T_K1), device=dev)
+    xs = torch.as_tensor(semi_inputs(semi, T_SEMI), device=dev)
+    out = {"phase": "senone_shards", "T": T_K1, "S": cont.mdef.n_sen,
+           "mps": list(SHARD_MPS), "k1": {}, "psparity": {}}
+    launches = 0
+    for mode in MODES:
+        sc = ContinuousScorer(cont.gauden, cont.ln_mixw, precision=mode,
+                              device=dev)
+        out["k1"][mode], n = check_shards(sc, x, f"K1 {mode}")
+        launches += n
+    for bits, raw in zip((8, 4), sendumps(semi)):
+        sc = PsParityScorer(semi.gauden, raw, semi.stream_slices(),
+                            topn=TOPN, wrap_uint8=bits == 4, device=dev)
+        out["psparity"][f"{bits}-bit"] = check_shards(
+            sc, xs, f"PsParityScorer {bits}-bit")[0]
+    out["k1_launches"] = launches
+    emit(out)
+    if launches != len(MODES) * sum(SHARD_MPS):
+        raise AssertionError(f"senone_shards: K1 launched {launches} times")
+    return out
+
+
+def phase_tools(dev, fx, tmp: str) -> dict:
+    """`tools fe` over a control file of seeded PCM on the card, held to
+    `-platform cpu` within the decoder phase's cepstral bound; then
+    `lmtool train` from the fixture's transcripts to ARPA and `tools
+    lm2fst` of it (host only, timed)."""
+    base = os.path.join(tmp, "tools")
+    os.makedirs(base)
+    names = []
+    for i, secs in enumerate(TOOLS_PCM_S):
+        names.append(f"pcm{i}")
+        fixture.synthetic_pcm(SEED + 10 + i, seconds=secs).tofile(
+            os.path.join(base, names[-1] + ".raw"))
+    ctl = os.path.join(base, "pcm.ctl")
+    with open(ctl, "w") as fh:
+        fh.write("".join(n + "\n" for n in names))
+
+    def run(cli, argv) -> tuple:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    fe_args = ["fe", "-c", ctl, "-di", base, "-ei", "raw", "-eo", "mfc"]
+    card = run(tools, fe_args + ["-do", os.path.join(base, "card")])
+    host = run(tools, fe_args + ["-do", os.path.join(base, "host"),
+                                 "-platform", "cpu"])
+    cpu_fe = Frontend(device="cpu")
+    b = np.full(cpu_fe.nfilt, LOGMEL_TOL) @ np.abs(
+        cpu_fe.dct.numpy().astype(np.float64))
+    if cpu_fe.lifter is not None:
+        b = b * np.abs(cpu_fe.lifter.numpy())
+    worst, frames, shapes_equal = 0.0, 0, True
+    for n in names:
+        got = read_mfc(os.path.join(base, "card", n + ".mfc"))
+        want = read_mfc(os.path.join(base, "host", n + ".mfc"))
+        shapes_equal &= got.shape == want.shape and len(got) > 0
+        if shapes_equal:
+            frames += len(got)
+            worst = max(worst, float((np.abs(got.astype(np.float64) - want)
+                                      / b).max()))
+    text = os.path.join(base, "corpus.txt")
+    with open(text, "w") as fh:
+        fh.write("".join(" ".join(t) + "\n" for t in fx.transcripts))
+    arpa, fst = os.path.join(base, "lm.arpa"), os.path.join(base, "lm.fst")
+    train = run(lmtool, ["train", "-text", text, "-lm", arpa, "-n", "3"])
+    to_fst = run(tools, ["lm2fst", "-i", arpa, "-o", fst])
+    with open(fst) as fh:
+        arcs = sum(1 for _ in fh)
+    out = {"phase": "tools", "files": len(names), "frames": frames,
+           "fe_card_s": card[2], "fe_cpu_s": host[2],
+           "fe_stdout_equal": card[1] == host[1],
+           "cep_worst_err_over_bound": worst,
+           "lmtool_train_s": train[2], "lmtool_stdout": train[1].strip(),
+           "lm2fst_s": to_fst[2], "fst_lines": arcs}
+    emit(out)
+    if any(r[0] != 0 for r in (card, host, train, to_fst)) or \
+            not (shapes_equal and out["fe_stdout_equal"]) or worst > 1.0 \
+            or not arcs:
+        raise AssertionError(f"tools: {out}")
+    return out
+
+
+def phase_mfu(card: str, k1: dict, semi: dict) -> dict:
+    """The port's mfu report for K1 at the main path's T=9,600 and
+    PsParityScorer at T=2000, from the times phases 3 and 5 took."""
+    stages = [mfu.Stage(
+        f"K1 {m} (T={T_MAIN}, S={S}, K={K}, D={D})", k1[m]["ms"] / 1e3,
+        mfu.continuous_gmm_flops(T_MAIN, S, K, D),
+        mfu.continuous_gmm_bytes(T_MAIN, S, K, D, True)
+        - (2.0 * D * S * K * 2 if m == "bf16" else 0.0),
+        precision=mfu.K1_PRECISION[m]) for m in MODES]
+    for r in semi["psparity"]:
+        stages.append(mfu.Stage(
+            f"PsParityScorer {r['weights']} (T={T_SEMI}, S={semi['S']}, "
+            f"K={semi['K']})", r["ms"] / 1e3, mfu.psparity_flops(
+                T_SEMI, len(semi["streams"]), semi["K"], semi["streams"],
+                semi["S"], TOPN), precision="f32"))
+    out = {"phase": "mfu", "card": card, "report": mfu.report(stages),
+           "stages": [{"name": s.name, "ms": 1e3 * s.seconds,
+                       "mfu_bf16": s.mfu, "precision": s.precision,
+                       "mfu_own_peak": s.adjusted_mfu,
+                       "hbm_util": s.bw_util} for s in stages]}
+    emit(out)
     return out
 
 
@@ -2490,11 +2669,14 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     del search, fp, tapes, hyps
     align = phase_align_allphone(dev, cont)
     semi = fixture.build(SEED, model="semi")
-    phase_semicont_scorer(dev, semi)
+    semicont = phase_semicont_scorer(dev, semi)
+    sharded = phase_senone_shards(dev, cont, semi)
     phase_semicont_slice(dev, semi)
     dec = phase_decoder(dev, {"cont": cont, "semi": semi})
     dec_stream = phase_decoder_stream(dev, {"cont": cont, "semi": semi})
+    phase_tools(dev, cont, tmp)
     holds.finish()
+    phase_mfu(card, k1, semicont)
     # The batch's shape (T=9,600) keys the row; the stream's (T=50, one
     # chunk) and the depth loop's (D=78, 150 at T=2000) ride beside it.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2505,7 +2687,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
         "replaces": "cmusphinx_tpu/ops/pallas_gmm.py:74",
         "launches": sum(p["k1_launches"] for p in (
             sl, dec, tree, stream, stream_tree, dec_stream, lat, dec_wide,
-            grammar, align, options, train, *rest)),
+            grammar, align, options, train, sharded, *rest)),
         **{k: k1["highest"][k] for k in keys},
         "stream_shape": {"T": T_STREAM, **{k: k1_stream["highest"][k]
                                            for k in keys}},

@@ -55,6 +55,24 @@ def _f32(a) -> np.ndarray:
     return np.ascontiguousarray(a, np.float32)
 
 
+def _senone_part(scorer: nn.Module, lo: int, hi: int, axes: dict
+                 ) -> nn.Module:
+    """A scorer of `scorer`'s class for senones [lo, hi): its plain
+    attributes and every buffer, those named in `axes` sliced on their
+    device along their senone axis, the rest shared."""
+    part = type(scorer).__new__(type(scorer))
+    nn.Module.__init__(part)
+    part.__dict__.update((k, v) for k, v in vars(scorer).items()
+                         if not k.startswith("_"))
+    for name, buf in scorer.named_buffers(recurse=False):
+        if name in axes:
+            buf = buf.narrow(axes[name], lo, hi - lo).clone(
+                memory_format=torch.contiguous_format)
+        part.register_buffer(name, buf)
+    part.n_sen = hi - lo
+    return part
+
+
 class _StreamParams(nn.Module):
     """Per-stream codebook buffers `means{f}`, `prec{f}`, `lrd{f}` (streams
     have different widths) and the stream slices into the feature vector."""
@@ -219,6 +237,14 @@ class ContinuousScorer(nn.Module):
             self._packed = (now, pack_params(self.lin, self.quad, self.const,
                                              self.precision))
         return self._packed[1]
+
+    def senones(self, lo: int, hi: int) -> "ContinuousScorer":
+        """The scorer of senones [lo, hi) alone (a senone shard): lin, quad
+        and const sliced on their device, so K1 packs and scores only
+        them."""
+        part = _senone_part(self, lo, hi, {"lin": 0, "quad": 0, "const": 0})
+        part._packed = None
+        return part
 
     def _apply(self, *args, **kwargs):
         # The buffers move or change type (`.to`, `.cuda`): the packed
@@ -444,6 +470,13 @@ class PsParityScorer(_StreamParams):
                 tmp = torch.minimum(tmp, y) - self.table8[dd]
             acc = tmp if acc is None else acc + tmp
         return -acc.to(torch.float32) * float(np.float32(self.scale))
+
+    def senones(self, lo: int, hi: int) -> "PsParityScorer":
+        """The scorer of senones [lo, hi) alone (a senone shard): mixw
+        sliced on its device; the codebooks, their top-N and the
+        normaliser are per codebook, so the shard shares them and its
+        scores are the whole scorer's columns, bit for bit."""
+        return _senone_part(self, lo, hi, {"mixw": 2})
 
     def score(self, feats: torch.Tensor) -> torch.Tensor:
         out = self.epilogue(self.int_densities(_flat(feats)))

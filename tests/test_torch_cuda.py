@@ -1,8 +1,9 @@
 """The port on the GPU: kernel K1 against its plain version, a
 one-utterance decode through it, the other scorers, the frontend, the
 Decoder, the LM backends, the large-vocabulary searches, the streaming
-decode and the lattice results on the card against their CPU runs.
-Skips where there is no CUDA device.
+decode and the lattice results on the card against their CPU runs, K1 on
+senone shards against the unsharded call, and `tools fe` on the card
+against `-platform cpu`.  Skips where there is no CUDA device.
 
 Tolerances against the CPU run: `PsParityScorer`'s epilogue bit-exact on
 the same int32 densities, and the whole scorer bit-exact on an
@@ -829,3 +830,54 @@ def test_dryrun_over_nccl_one_rank(cuda):
     out = dryrun_multichip(1, "cuda")
     assert out["backend"] == "nccl" and out["ranks"] == 1
     assert out["decode"]["tree"]["int_values_differing"] == 0
+    assert (out["dp"], out["mp"]) == (1, 1)
+    assert out["decode"]["semi"]["segments_equal"]
+
+
+@pytest.mark.parametrize("S,K,D,T", [(5150, 32, 39, 300), (301, 32, 39, 517),
+                                     (37, 4, 13, 129), (57, 4, 65, 200),
+                                     (41, 32, 150, 300)])
+@pytest.mark.parametrize("mode", ["highest", "high", "bf16"])
+def test_k1_on_senone_shards_equals_its_columns(cuda, mode, S, K, D, T):
+    """K1 over a senone shard (its own packed tiles, the shard's first
+    senone at the start of a tile) gives the unsharded call's columns bit
+    for bit, and score_shards the whole."""
+    from cmusphinx_tpu_torch.parallel.senone_shard import score_shards
+    rng = np.random.RandomState(S + K + D + T + 1)
+    g, lnw, _, _ = _k1_model(rng, S, K, D)
+    sc = ContinuousScorer(g, lnw, precision=mode, device=cuda)
+    x = torch.as_tensor(rng.randn(T, D).astype(np.float32), device=cuda)
+    want = sc.score(x)
+    for mp in (2, 3):
+        before = fused_mixture_scores.launches
+        got = score_shards(sc, x, mp)
+        torch.cuda.synchronize()
+        assert fused_mixture_scores.launches == before + mp
+        assert torch.equal(got, want), (mp, float((got - want).abs().max()))
+
+
+def test_tools_fe_on_card_matches_cpu(cuda, tmp_path, monkeypatch, capsys):
+    from cmusphinx_tpu_torch.cli import tools
+    from cmusphinx_tpu_torch.frontend import Frontend
+    from cmusphinx_tpu_torch.utils.bio import read_mfc
+    for i in range(3):
+        fixture.synthetic_pcm(i, seconds=0.6 + 0.4 * i).tofile(
+            str(tmp_path / f"p{i}.raw"))
+    (tmp_path / "c.ctl").write_text("p0\np1\np2\n")
+    monkeypatch.chdir(tmp_path)
+    lines = {}
+    for plat, out in (("cuda", "card"), ("cpu", "host")):
+        assert tools.main(["fe", "-c", "c.ctl", "-do", out, "-platform",
+                           plat]) == 0
+        lines[plat] = capsys.readouterr().out
+    assert lines["cuda"] == lines["cpu"] and "processed 3 files" in \
+        lines["cpu"]
+    fe = Frontend(device="cpu")
+    b = np.full(fe.nfilt, 1e-4) @ np.abs(fe.dct.numpy().astype(np.float64))
+    if fe.lifter is not None:
+        b = b * np.abs(fe.lifter.numpy())
+    for i in range(3):
+        got = read_mfc(str(tmp_path / "card" / f"p{i}.mfc"))
+        want = read_mfc(str(tmp_path / "host" / f"p{i}.mfc"))
+        assert got.shape == want.shape and len(got)
+        assert np.all(np.abs(got.astype(np.float64) - want) <= b)

@@ -4,8 +4,9 @@ lexicon-graph builder, the frontend's pitch tracker and CDCN, and the
 trainer's numpy code: sentence HMMs, model export, decision trees and the
 copied functions of the pipeline, the transforms, semi-continuous training
 and MMIE)
-read and build exactly what the reference package's originals do, and no
-file of the port imports JAX, optax or the reference package."""
+read and build exactly what the reference package's originals do, no
+file of the port imports JAX, optax or the reference package, and the port
+has a counterpart of every module of the reference package."""
 
 import ast
 import dataclasses
@@ -462,9 +463,29 @@ def test_no_port_file_imports_jax_or_the_reference():
         "train/mmie", "train/transform", "train/vtln", "frontend/ep",
         "frontend/pitch", "frontend/cdcn", "ops/approx", "ops/subvq",
         "utils/senfh", "decode/align_tp", "parallel/hosts",
-        "parallel/dryrun")} <= names
+        "parallel/dryrun", "parallel/senone_shard", "utils/huff",
+        "utils/mfu", "models/lts", "models/fst", "models/htk",
+        "models/phoenix", "lm/idngram", "lm/server", "cli/lmtool",
+        "cli/tools")} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "optax",
                                      "cmusphinx_tpu")]
     assert not bad, bad
+
+
+def _modules(package: str) -> set:
+    root = ROOT / package
+    return {str(f.relative_to(root).with_suffix(""))
+            for f in root.rglob("*.py")}
+
+
+def test_port_has_every_module_of_the_reference():
+    """The two packages' module lists differ only by the port's own
+    additions and the Pallas kernel's module, whose port is
+    `ops/fused_gmm` with its CUDA source."""
+    ref, port = _modules("cmusphinx_tpu"), _modules("cmusphinx_tpu_torch")
+    assert ref - port == {"ops/pallas_gmm"}
+    assert port - ref == {"convert", "fixture", "decode/results",
+                          "ops/fused_gmm", "parallel/dryrun",
+                          "parallel/senone_shard"}
