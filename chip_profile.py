@@ -111,16 +111,14 @@ def profile_cell(dev, name: str, fx, scorer) -> dict:
             hf = h.reshape(-1)
             out["score_rows_ms"] = host_ms(lambda: s.dlm.score_rows(hf, hf))
         step = s._step_tree if s._tree else s._step_static
-        tape = tuple(torch.empty((B, Tp, E), dtype=dt, device=dev)
-                     for dt in (torch.int32, torch.float32, torch.int32,
-                                torch.int32, torch.int32)) + (
-            torch.empty((B, Tp, E, s.graph.n_rcvar), device=dev),)
+        tape = tuple(a[:, 5] for a in s._tape(B, Tp))
         valid = torch.ones(B, dtype=torch.bool, device=dev)
-        out["frame_step_ms"] = host_ms(lambda: step(carry, sen, 5, valid,
+        t5 = torch.full((), 5, dtype=torch.int64, device=dev)
+        out["frame_step_ms"] = host_ms(lambda: step(carry, sen, t5, valid,
                                                     tape))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as p2:
-            step(carry, sen, 5, valid, tape)
+            step(carry, sen, t5, valid, tape)
             torch.cuda.synchronize()
         ev2 = device_events(p2)
         out["frame_step_device_events"] = len(ev2)

@@ -179,12 +179,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 31. mfu: utils.mfu's report for K1 at T=9,600 (phase 3's times) and
    PsParityScorer at T=2000 (phase 5's), beside the card's name and
    power limit.
+32. graphs: every N-gram decode and stream above ran its frame loop
+   through captured CUDA graphs (NgramSearch's default on the card).
+   Here the slice (300 words, B=16), the 5,000-word flat composite batch
+   and the 20,000-word tree (B=16), and the mpx and tree streams run
+   graphed and eager (`NgramSearch._graphs = False`), in turns, on the
+   same card: tapes bit-equal, hypotheses and DeviceNgram.calls equal;
+   for each, ms a frame of the frame loop (`_viterbi` on the pass's
+   senone scores), xRT, stream push -> partial p50 / p99, the device's
+   busy ms (torch.profiler) and idle share over a 100-frame window, the
+   search's captures and capture seconds, the graphs cached; and one
+   replay of each batch's frame loop under
+   torch.cuda.set_sync_debug_mode("error").
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
 23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
-13, 30, 19 and 31.
+13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -206,6 +218,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -338,6 +351,16 @@ ALIGN_TP_CHUNKS = 8
 SHARD_MPS = (2, 3)
 # Phase 30: seeded PCM files through `tools fe`, their seconds.
 TOOLS_PCM_S = (1.0, 2.0, 3.0)
+# Phase 32: timed passes of each frame loop (graphed, eager, in turns),
+# and the frames of the window traced for the device's busy time.  Its
+# traffic cells start from an empty graph cache: one utterance at a time
+# in TRAFFIC_BUCKETS distinct 100-frame buckets (more than the searches
+# cache at 8 graphs a search, and past two side-table sizes), then
+# batches of mixed lengths (TRAFFIC_BATCHES: batch size -> batches).
+GRAPH_PASSES = 2
+PROFILE_FRAMES = 100
+TRAFFIC_BUCKETS = 9
+TRAFFIC_BATCHES = {4: 2, 16: 1}
 
 
 # The host clock at the start of main: each phase's line carries the
@@ -1278,6 +1301,339 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
                              f"{chunks} chunks")
     if max_frames[0] < max(len(feats_list[i]) for i in utts) and not any(grew):
         raise AssertionError(f"{name}: the tape never grew")
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase "graphs": the N-gram frame loop through captured CUDA graphs
+# (the default, which every phase above ran) against the eager loop
+# (`NgramSearch._graphs = False`) on the same card, in turns.
+
+def device_busy_ms(prof) -> tuple:
+    """(device events, ms the card was busy): the union of the intervals
+    of the trace's device events (an op and its kernel may both be
+    listed; the union counts their time once)."""
+    from torch.autograd import DeviceType
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(iv), busy / 1e3
+
+
+@contextlib.contextmanager
+def frame_loop(search, graphs: bool):
+    """The search's frame loop graphed or eager for the block's duration;
+    its LM calls counted from 0."""
+    search._graphs = graphs
+    search.dlm.calls.clear()
+    try:
+        yield
+    finally:
+        search._graphs = True
+
+
+def busy_and_idle(fn) -> dict:
+    """The device's work in fn() (a short window: the trace's events are
+    read back on the host): fn once to warm up (a capture, if it needs
+    one), once on the host clock alone, then once under torch.profiler
+    (device activity only).  The idle share is of that one profiled
+    window: the device's busy ms in its trace over its own synchronised
+    wall.  A busy time past the wall would be a clock or trace fault:
+    the share is then None and `idle_share_flag` says why.  Tracing
+    slows the host's launches, so that share reads high; the same busy
+    ms over the untraced run's wall (`idle_share_untraced_wall`, None
+    where the busy ms exceed it) reads low, as the trace's kernels run
+    a little long."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev, busy = device_busy_ms(prof)
+    flag = ("no device event" if not ev else
+            "busy past the wall" if busy > 1e3 * wall else None)
+    return {"window_wall_ms": 1e3 * wall,
+            "window_unprofiled_wall_ms": 1e3 * bare,
+            "window_device_events": ev, "window_device_busy_ms": busy,
+            "device_idle_share": None if flag else 1.0 - busy / (1e3 * wall),
+            "idle_share_flag": flag,
+            "idle_share_untraced_wall": None if flag or busy > 1e3 * bare
+            else 1.0 - busy / (1e3 * bare)}
+
+
+def release_graphs(search) -> dict:
+    """Drop the search's captured graphs and their pool; the card memory
+    they held (allocated: their static buffers; reserved: those and the
+    pool), measured across the drop with the allocator's caches
+    emptied."""
+    import gc
+    n = len(search._graph_cache)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    search._graph_cache.clear()
+    search._graph_pool = None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    return {"graphs": n, "allocated_mb": (a0 - a1) / 2 ** 20,
+            "reserved_mb": (r0 - r1) / 2 ** 20}
+
+
+def graph_batch_cell(search, fp, fx, card: str) -> dict:
+    """A batch cell graphed and eager, in turns: the decode's tapes
+    bit-equal and its LM calls equal; the pass's wall (xRT) and the frame
+    loop's (`_viterbi` on the pass's senone scores: ms a frame); the
+    device's busy ms and idle share over the loop's first PROFILE_FRAMES
+    frames (every frame runs the same fixed-shape ops); one replay of the
+    frame loop under torch.cuda.set_sync_debug_mode("error"); the
+    search's captures and capture seconds so far (the phase's decodes and
+    streams took them)."""
+    stats = dict(search._graph_stats)
+    c, T, Ts = search._pad(fx.ceps)
+    with torch.inference_mode():
+        scores = search.scorer.score(fp._padded_kernel(c, T, True))
+    valid = torch.arange(c.shape[1], device=c.device)[None, :] < T[:, None]
+    frames = int(c.shape[1])
+    res = {m: {"pass_s": [], "loop_s": []} for m in ("graphed", "eager")}
+    for rep in range(GRAPH_PASSES):
+        for m in ("graphed", "eager"):
+            with frame_loop(search, m == "graphed"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hyps = search.decode_batch_cep(fx.ceps, fp)
+                torch.cuda.synchronize()
+                res[m]["pass_s"].append(time.perf_counter() - t0)
+                if rep == 0:
+                    res[m]["tapes"] = [a.cpu().numpy()
+                                       for a in search._last_batch[0]]
+                    res[m]["segs"] = [segs(h) for h in hyps]
+                    res[m]["lm_calls"] = dict(search.dlm.calls)
+                with torch.inference_mode():
+                    t0 = time.perf_counter()
+                    search._viterbi(scores, valid)
+                    torch.cuda.synchronize()
+                    res[m]["loop_s"].append(time.perf_counter() - t0)
+    w = min(PROFILE_FRAMES, frames)
+    for m in ("graphed", "eager"):
+        r = res[m]
+        with frame_loop(search, m == "graphed"), torch.inference_mode():
+            r.update(busy_and_idle(
+                lambda: search._viterbi(scores[:, :w], valid[:, :w])))
+        loop = statistics.median(r["loop_s"])
+        r.update({"median_pass_s": statistics.median(r["pass_s"]),
+                  "xRT": fx.audio_seconds / statistics.median(r["pass_s"]),
+                  "ms_a_frame": 1e3 * loop / frames,
+                  "window_frames": w})
+    with torch.inference_mode():
+        before = search._graph_stats["captures"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            search._viterbi(scores, valid)
+            sync_free = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    g, e = res["graphed"], res["eager"]
+    out = {"card": card, "utterances": len(Ts), "frames_padded": frames,
+           "block_frames": search._block_len(len(Ts), frames),
+           "audio_s": fx.audio_seconds,
+           "captures": stats["captures"], "capture_s": stats["capture_s"],
+           "graphs_cached": len(search._graph_cache),
+           "replayed_without_capture":
+               search._graph_stats["captures"] == before,
+           "replay_sync_free": sync_free,
+           "tapes_bit_equal": all(np.array_equal(a, b) for a, b in
+                                  zip(g.pop("tapes"), e.pop("tapes"))),
+           "segments_equal": g.pop("segs") == e.pop("segs"),
+           "lm_calls_equal": g["lm_calls"] == e["lm_calls"],
+           "graphed": g, "eager": e}
+    return out
+
+
+def graph_stream_cell(search, feats_list, utts, card: str) -> dict:
+    """Streams graphed and eager, in turns (utterance by utterance): the
+    tapes bit-equal, the finals and LM calls equal; push -> partial p50 /
+    p99, streaming xRT, and the device's busy ms and idle share over the
+    first PROFILE_FRAMES frames of utterance utts[0] streamed."""
+    res = {m: {"lat_ms": [], "wall_s": 0.0, "tapes": [], "finals": [],
+               "lm_calls": Counter()} for m in ("graphed", "eager")}
+    for i in utts:
+        for m in ("graphed", "eager"):
+            r = res[m]
+            with frame_loop(search, m == "graphed"):
+                t0 = time.perf_counter()
+                final, _, ms, _ = run_stream(search, feats_list[i], 3000)
+                wall = time.perf_counter() - t0
+                r["lm_calls"].update(search.dlm.calls)
+            r["wall_s"] += wall
+            r["lat_ms"] += [x[0] for x in ms]
+            r["tapes"] += list(search._last[:6])
+            r["finals"].append(segs(final))
+    audio_s = sum(len(feats_list[i]) for i in utts) / 100.0
+    head = feats_list[utts[0]][:PROFILE_FRAMES]
+    for m in ("graphed", "eager"):
+        r = res[m]
+        with frame_loop(search, m == "graphed"):
+            r.update(busy_and_idle(lambda: run_stream(search, head, 3000)))
+        lat = np.array(r.pop("lat_ms"))
+        r.update({"push_partial_ms_p50": float(np.percentile(lat, 50)),
+                  "push_partial_ms_p99": float(np.percentile(lat, 99)),
+                  "xRT": audio_s / r["wall_s"], "pushes": len(lat),
+                  "lm_calls": dict(r["lm_calls"]),
+                  "window_frames": len(head)})
+    g, e = res["graphed"], res["eager"]
+    return {"card": card, "utterances": len(utts), "audio_s": audio_s,
+            "chunk_frames": T_STREAM,
+            "graphs_cached": len(search._graph_cache),
+            "tapes_bit_equal": all(np.array_equal(a, b) for a, b in
+                                   zip(g.pop("tapes"), e.pop("tapes"))),
+            "finals_equal": g.pop("finals") == e.pop("finals"),
+            "lm_calls_equal": g["lm_calls"] == e["lm_calls"],
+            "graphed": g, "eager": e}
+
+
+def graph_shapes(search) -> list:
+    """[batch, block frames, side-table frames (static and tree steps;
+    else None)] of each graph the search holds."""
+    return [[*g.scores.shape[:2], g.carry[2].shape[1] // search.E
+             if search._fast else None]
+            for g in search._graph_cache.values()]
+
+
+def traffic(fx, seed: int) -> list:
+    """Cold, mixed-length traffic cut from the fixture's cepstra joined:
+    one utterance in each of TRAFFIC_BUCKETS 100-frame buckets, one at a
+    time in a seeded order, then TRAFFIC_BATCHES of utterances whose
+    lengths fall in seeded buckets.  [(batch size, [cepstra])]."""
+    pool = np.concatenate(fx.ceps)
+    rng = np.random.default_rng(seed)
+
+    def cut(bucket: int) -> np.ndarray:
+        n = int(rng.integers(100 * bucket + 1, 100 * bucket + 101))
+        i = int(rng.integers(0, len(pool) - n + 1))
+        return pool[i: i + n]
+    seq = [(1, [cut(int(b))]) for b in rng.permutation(TRAFFIC_BUCKETS)]
+    for B, n in TRAFFIC_BATCHES.items():
+        seq += [(B, [cut(int(b)) for b in
+                     rng.integers(0, TRAFFIC_BUCKETS, B)])
+                for _ in range(n)]
+    return seq
+
+
+def graph_traffic_cell(search, fp, seq, card: str, one=None) -> dict:
+    """The traffic `seq` through the search from an empty graph cache:
+    graphed (cold: every new shape captures), eager, then graphed again
+    (warm: no capture may happen), each decode's tapes bit-equal to the
+    eager run's.  Single utterances go through `one` (a Decoder's
+    utterance API) where given, else `decode_batch_cep` as a batch of
+    one.  Reports the wall of each part, the captures, their seconds and
+    the graphs cached, and the card memory the graphs held; what the
+    search's earlier cells left cached is released first and reported."""
+    earlier = release_graphs(search)
+    stats0 = dict(search._graph_stats)
+    res = {}
+    for m in ("graphed_cold", "eager", "graphed_warm"):
+        walls = {}
+        tapes, words = [], []
+        before = dict(search._graph_stats)
+        with frame_loop(search, m != "eager"):
+            for B, ceps in seq:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if B == 1 and one is not None:
+                    hyps = [one(ceps[0])]
+                else:
+                    hyps = search.decode_batch_cep(ceps, fp)
+                torch.cuda.synchronize()
+                key = f"B={B}"
+                walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+                tapes.append([a.cpu().numpy()
+                              for a in search._last_batch[0]])
+                words.append([segs(h) for h in hyps])
+        res[m] = {"wall_s": walls, "total_s": sum(walls.values()),
+                  "captures": search._graph_stats["captures"]
+                  - before["captures"],
+                  "capture_s": search._graph_stats["capture_s"]
+                  - before["capture_s"],
+                  "replays": search._graph_stats["replays"]
+                  - before["replays"],
+                  "tapes": tapes, "segs": words}
+    e = res["eager"]
+    out = {"card": card, "decodes": len(seq),
+           "batch_sizes": [B for B, _ in seq],
+           "frames": [max(len(c) for c in ceps) for _, ceps in seq],
+           "padded_frames": sum(-(-max(len(c) for c in ceps) // 100) * 100
+                                for _, ceps in seq),
+           "graphs_cached": len(search._graph_cache),
+           "graph_shapes": graph_shapes(search),
+           "earlier_graphs": earlier,
+           "warm_replays_only": res["graphed_warm"]["captures"] == 0}
+    for m in ("graphed_cold", "graphed_warm"):
+        g = res[m]
+        out[f"{m}_tapes_bit_equal"] = all(
+            all(np.array_equal(a, b) for a, b in zip(x, y))
+            for x, y in zip(g.pop("tapes"), e["tapes"]))
+        out[f"{m}_segments_equal"] = g.pop("segs") == e["segs"]
+    e.pop("tapes"), e.pop("segs")
+    out["tapes_bit_equal"] = (out["graphed_cold_tapes_bit_equal"]
+                              and out["graphed_warm_tapes_bit_equal"])
+    out["segments_equal"] = (out["graphed_cold_segments_equal"]
+                             and out["graphed_warm_segments_equal"])
+    out.update(res)
+    out["graph_memory"] = release_graphs(search)
+    out["captures_total"] = search._graph_stats["captures"] - stats0[
+        "captures"]
+    return out
+
+
+def decoder_traffic_cell(dev, fx, tmp: str, card: str) -> dict:
+    """`graph_traffic_cell` through a new `Decoder` of the slice's model:
+    single utterances by its utterance API (`start_utt`, `process_cep`,
+    `end_utt`: what `decode_cep_file` runs after reading the file),
+    batches by its search's `decode_batch_cep`."""
+    dec = Decoder(device=dev, **fixture.write_model_dir(
+        fx, os.path.join(tmp, "traffic")))
+
+    def one(cep):
+        dec.start_utt()
+        dec.process_cep(cep)
+        return dec.end_utt()
+    g = dec.search.graph
+    out = graph_traffic_cell(dec.search, dec.fp, traffic(fx, SEED), card,
+                             one=one)
+    out["graph"] = f"{g.rc_mode}/{g.lc_mode}/{g.lex_mode}"
+    return out
+
+
+def phase_graphs(cells: dict) -> dict:
+    """Emit the cells of phase "graphs"; fail on any tape, hypothesis or
+    LM-call difference between the graphed and the eager frame loop, on
+    a replay that synchronised or captured, and on a warm traffic pass
+    that captured."""
+    out = {"phase": "graphs", "cells": cells}
+    emit(out)
+    keys = ("tapes_bit_equal", "segments_equal", "finals_equal",
+            "lm_calls_equal", "replayed_without_capture", "replay_sync_free",
+            "warm_replays_only")
+    bad = {k: v for k, v in cells.items()
+           if not all(v.get(x, True) for x in keys)}
+    if bad:
+        raise AssertionError(f"graphs: graphed and eager differ: {bad}")
     return out
 
 
@@ -2644,27 +3000,41 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
             phase_replay(dev, cont, tmp), phase_endpoint(dev, cont),
             phase_align_tp(dev, cont), phase_multi_rank(dev, cont)]
     card = info["nvidia_smi"]
-    phase_large_vocab(dev, card, "large_vocab_static",
-                      (SEED, "semi", fixture.LARGE_5K), "ps", "flat", "rows",
-                      hold_utts=None, holds=holds)
+    _, (fx5k, search, fp, _, _) = phase_large_vocab(
+        dev, card, "large_vocab_static", (SEED, "semi", fixture.LARGE_5K),
+        "ps", "flat", "rows", hold_utts=None, holds=holds)
+    graphs = {"static5k": graph_batch_cell(search, fp, fx5k, card)}
+    graphs["static5k"]["graph_memory"] = release_graphs(search)
+    del fx5k, search, fp
     large_spec = (SEED, "cont", fixture.LARGE)
     tree, (large, search, fp, tapes, hyps) = phase_large_vocab(
         dev, card, "large_vocab_tree", large_spec, "cont", "tree", "hashed",
         hold_utts=1, holds=holds)
     if tree["k1_launches"] != 1:
         raise AssertionError("the tree decode did not launch K1 once")
-    stream_tree = stream_phase("stream_tree", search,
-                               batch_features(search, fp, large), tapes, hyps,
+    feats = batch_features(search, fp, large)
+    stream_tree = stream_phase("stream_tree", search, feats, tapes, hyps,
                                [0], [3000])
-    del search, fp, tapes, hyps
+    graphs["tree20k"] = graph_batch_cell(search, fp, large, card)
+    graphs["tree20k_stream"] = graph_stream_cell(search, feats, [0], card)
+    graphs["tree20k_traffic"] = graph_traffic_cell(
+        search, fp, traffic(large, SEED), card)
+    del search, fp, tapes, hyps, feats
     options = phase_ngram_options(dev, cont, cont_spec, large, large_spec,
                                   holds)
     del large
     dec_wide = phase_decoder_wide(dev, fixture.build(SEED, ncep=NCEP_WIDE))
     sl, (search, fp, tapes, hyps) = phase_slice(dev, cont)
-    stream = stream_phase("stream", search, batch_features(search, fp, cont),
-                          tapes, hyps, range(STREAM_UTTS),
+    feats = batch_features(search, fp, cont)
+    stream = stream_phase("stream", search, feats, tapes, hyps,
+                          range(STREAM_UTTS),
                           [2 * T_STREAM] + [3000] * (STREAM_UTTS - 1))
+    graphs["slice"] = graph_batch_cell(search, fp, cont, card)
+    graphs["slice_stream"] = graph_stream_cell(search, feats,
+                                               range(STREAM_UTTS), card)
+    graphs["slice"]["graph_memory"] = release_graphs(search)
+    graphs["slice_traffic"] = decoder_traffic_cell(dev, cont, tmp, card)
+    phase_graphs(graphs)
     lat = phase_lattice(dev, search, fp, cont)
     del search, fp, tapes, hyps
     align = phase_align_allphone(dev, cont)

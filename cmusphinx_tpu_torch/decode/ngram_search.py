@@ -44,7 +44,12 @@ What differs in form, not in result:
   the static and tree states out `[B, S, C]` or flat state-major for the
   TPU's lanes); a single utterance is a batch of one.  One step serves
   what the reference splits into its unbatched and batched cores.
-- The frame scan is a Python loop over frames of batched tensor ops.
+- The frame scan runs in blocks of frames (`_block`: the static and
+  tree steps' senone expansion, then a frame step per frame, the frame
+  index a 0-d tensor advanced on the device).  On the card each block is
+  a captured CUDA graph (`_BlockGraph`), captured once per shape and
+  replayed block after block: the counterpart of the reference's
+  `jit`-compiled `lax.scan`.  On the CPU the same block runs eagerly.
 - Gathers are plain gathers; the reference's one-hot matmul gathers, its
   flat state-major layout and its 128-lane root padding were TPU devices.
 - Top-k is a stable descending sort, which keeps `jax.lax.top_k`'s
@@ -68,6 +73,8 @@ workaround for TPU compiler crashes.
 from __future__ import annotations
 
 import math
+import time
+from collections import Counter, OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -143,6 +150,15 @@ NGRAM_ARGS = [
 # (ROADMAP A-x); the expansion is elementwise, so the block changes no
 # result.
 EXPAND_BLOCK_BYTES = 192 << 20
+
+# Captured blocks a search keeps (least recently used dropped first).  A
+# graph's key is its batch size and block length, and for the static and
+# tree steps its side-tables' frames (`_side_frames`; a stream's tape
+# size): one graph a batch size (mpx), or one a batch size and power of
+# two of FRAME_BUCKET, and one for a search's streams.  16 holds a search
+# serving three batch sizes at five side-table sizes and a stream; a
+# 20,000-word tree graph holds ~80 MB of the card (PERF.md §5).
+GRAPH_CACHE = 16
 
 
 def _f32(x: float) -> float:
@@ -223,9 +239,69 @@ class NgramVocab:
         self.n_word = len(words)
 
 
+class _BlockGraph:
+    """One block of frames (`NgramSearch._block`) captured as a CUDA graph,
+    with the static buffers it reads and writes, all its own: the carry,
+    the block's inputs (scores, valid, lookahead), the first frame index
+    `t` and the block's K tape rows.  Its intermediates live in the
+    search's shared graph pool.  `calls` is what one block adds to
+    `DeviceNgram.calls` (a host counter the replay does not run),
+    recorded at capture."""
+
+    def __init__(self, search: "NgramSearch", carry, blk, t0: int, tape):
+        self.carry = tuple(c.clone() for c in carry)
+        self.scores, self.valid, self.la = (
+            None if x is None else x.clone() for x in blk)
+        dev = self.scores.device
+        self.t = torch.full((), t0, dtype=torch.int64, device=dev)
+        K = self.scores.shape[1]
+        self.tape = tuple(a.new_empty((a.shape[0], K) + a.shape[2:])
+                          for a in tape)
+        calls = search.dlm.calls
+        before = Counter(calls)
+        # Warm up once on a side stream (torch.cuda.graph's rule), on the
+        # caller's values: the warm-up runs the kernels for real.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run(search)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm = Counter(calls)
+        # A host read inside the block fails the capture, and the error
+        # propagates: there is no eager fallback.  Thread-local capture
+        # lets other threads (NCCL's watchdog) query the card meanwhile.
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=search._graph_pool,
+                              capture_error_mode="thread_local"):
+            self._run(search)
+        self.calls = calls - warm
+        calls.clear()
+        calls.update(before)
+
+    def _run(self, search: "NgramSearch") -> None:
+        out = search._block(self.carry, self.scores, self.t, self.valid,
+                            self.tape, self.la)
+        for a, b in zip(self.carry, out):
+            if b is not a:
+                a.copy_(b)
+
+    def replay(self, search: "NgramSearch", blk, t0: int) -> None:
+        for dst, src in zip((self.scores, self.valid, self.la), blk):
+            if src is not None:
+                dst.copy_(src)
+        self.t.fill_(t0)
+        self.graph.replay()
+        search.dlm.calls.update(self.calls)
+
+
 class NgramSearch(nn.Module):
     """Trigram decoder over a senone scorer.  The graph's tables, the
-    transition matrices and the LM tables are buffers on `device`."""
+    transition matrices and the LM tables are buffers on `device`.
+
+    On the card the frame loop runs through captured CUDA graphs of a
+    block of frames (`_scan`).  `_graphs = False`, a private attribute
+    for the tests and `chip_smoke.py`, runs the same blocks eagerly
+    there, to compare the two."""
 
     FRAME_BUCKET = 100
 
@@ -293,6 +369,10 @@ class NgramSearch(nn.Module):
             np.all((g.prev_chan == -1) | (g.prev_chan == chain)))
         self.E = min(self.E, v.n_word)
         self.dlm = DeviceNgram(lm, device=self.device)
+        self._graphs = True
+        self._graph_cache: OrderedDict = OrderedDict()
+        self._graph_pool = None
+        self._graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
         self.start_lmwid = lm.word_id("<s>")
         self.finish_lmwid = lm.word_id("</s>")
         self.sil_ci = mdef.sil if mdef.sil >= 0 else 0
@@ -355,6 +435,11 @@ class NgramSearch(nn.Module):
         buf("_is_finish", v.is_finish)
         buf("_fil_pen", fp)
         buf("_entc0", entc0)
+        # Offsets of a frame's rows in the history side-table and (the tree
+        # with bigram lookahead) the entry-correction side-table.
+        buf("_ar_E", np.arange(self.E))
+        if self._tree and self.use_bgla:
+            buf("_ar_ct", np.arange(self.nlextree * self._n_roots))
         for name, b in zip(("d0", "d1", "d2", "elast", "eprev"),
                            hmm_bands(tmat.log_tp[g.tmat_idx])):
             buf("_band_" + name, b, torch.float32)
@@ -585,14 +670,13 @@ class NgramSearch(nn.Module):
         return _f32(self.pl_weight) * torch.stack(shifts).amax(0)
 
     @staticmethod
-    def _write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc) -> None:
-        tw, tsc, tprev, th2, th1, trc = tape
-        tw[:, t] = torch.where(ok, wsel, -1)
-        tsc[:, t] = torch.where(ok, vals, NEG_INF)
-        tprev[:, t] = pe
-        th2[:, t] = h2
-        th1[:, t] = h1
-        trc[:, t] = torch.where(ok[..., None], slot_rc, NEG_INF)
+    def _write_tape(tape_t, ok, wsel, vals, pe, h2, h1, slot_rc) -> None:
+        """The frame's tape rows: `tape_t` holds views [B, E(, Vr)] of the
+        block's tape at this frame's row (`_block`)."""
+        rows = (torch.where(ok, wsel, -1), torch.where(ok, vals, NEG_INF),
+                pe, h2, h1, torch.where(ok[..., None], slot_rc, NEG_INF))
+        for a, r in zip(tape_t, rows):
+            a.copy_(r)
 
     def _read_hist(self, ht, pe):
         """Histories (h2, h1) of the tape slots `pe` [B, L] from the
@@ -601,10 +685,10 @@ class NgramSearch(nn.Module):
         return (torch.where(pe < 0, self.start_lmwid, ph[..., 0]),
                 torch.where(pe < 0, -1, ph[..., 1]))
 
-    @staticmethod
-    def _record_hist(ht, t, E, valid_t, h2, h1) -> None:
-        ht[:, t * E: (t + 1) * E] = torch.where(
-            valid_t[:, None, None], torch.stack([h2, h1], -1), -1)
+    def _record_hist(self, ht, t, valid_t, h2, h1) -> None:
+        """Frame t's histories into rows t*E .. t*E+E-1 of ht."""
+        ht.index_copy_(1, t * self.E + self._ar_E, torch.where(
+            valid_t[:, None, None], torch.stack([h2, h1], -1), -1))
 
     # ------------------------------------------------------------------
     # The mpx frame step (multiplexed left contexts).
@@ -629,9 +713,11 @@ class NgramSearch(nn.Module):
         return tuple(a[None].expand(B, C, S).contiguous()
                      for a in (alpha,) + pays)
 
-    def _step_mpx(self, hmmc, scores_t, t: int, valid_t, tape, la_t=None):
-        """One frame of the mpx core for the whole batch.  Writes the
-        frame's tape row into `tape` and returns the new carry."""
+    def _step_mpx(self, hmmc, scores_t, t, valid_t, tape, la_t=None):
+        """One frame of the mpx core for the whole batch (frame t, a 0-d
+        int64 tensor, as in every step).  Writes the frame's tape rows into
+        `tape` (views of one row, `_write_tape`) and returns the new
+        carry."""
         alpha0, hist0, xsr0, hw20, hw10 = hmmc
         B = alpha0.shape[0]
         E = self.E
@@ -662,7 +748,7 @@ class NgramSearch(nn.Module):
         fil = self._is_filler[wsel]
         h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
         h1 = torch.where(fil, prev_h1, prev_h2)
-        self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc)
+        self._write_tape(tape, ok, wsel, vals, pe, h2, h1, slot_rc)
 
         # ---- word entries (take effect next frame) ----
         ent_w, ebp_w, estar = self._entries(t, ok, wsel, h1, h2, slot_rc)
@@ -691,7 +777,7 @@ class NgramSearch(nn.Module):
         return tuple(torch.where(v, new, old) for new, old in zip(
             (alpha, hist, xsr, hw2, hw1), hmmc))
 
-    def _entries(self, t: int, ok, wsel, h1, h2, slot_rc):
+    def _entries(self, t, ok, wsel, h1, h2, slot_rc):
         """Single best cross-word entry per word (word_transition
         semantics): over this frame's E exit slots, exit score (the exit's
         rc variant serving the word's first CI phone) + LM or filler
@@ -750,7 +836,7 @@ class NgramSearch(nn.Module):
                                   device=dev),)
         return carry
 
-    def _step_static(self, carry, sen_t, t: int, valid_t, tape, la_t=None):
+    def _step_static(self, carry, sen_t, t, valid_t, tape, la_t=None):
         """One frame of the static core (composite lc, flat lexicon): the
         reference's `_make_core_static` (any n_rcvar) and
         `_make_core_static_batched` (n_rcvar == 1) in one step."""
@@ -782,11 +868,11 @@ class NgramSearch(nn.Module):
         fil = self._is_filler[wsel]
         h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
         h1 = torch.where(fil, prev_h1, prev_h2)
-        self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, slot_rc)
+        self._write_tape(tape, ok, wsel, vals, pe, h2, h1, slot_rc)
 
         # ---- word entries ----
         ent_w, ebp_w, _ = self._entries(t, ok, wsel, h1, h2, slot_rc)
-        self._record_hist(ht, t, E, valid_t, h2, h1)
+        self._record_hist(ht, t, valid_t, h2, h1)
 
         # ---- within-word propagation ----
         if self._chain_shift:
@@ -806,7 +892,7 @@ class NgramSearch(nn.Module):
         return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
                 ht)
 
-    def _tree_exits(self, t: int, valid_t, tape, wex, wbp, ht, ct,
+    def _tree_exits(self, t, valid_t, tape, wex, wbp, ht, ct,
                     nsel=None):
         """The tree steps' exit readout, from each word's best exit `wex`
         [B, W] and its token's payload `wbp`: the shortlist on the smeared
@@ -856,8 +942,8 @@ class NgramSearch(nn.Module):
         fil = self._is_filler[wsel]
         h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
         h1 = torch.where(fil, prev_h1, prev_h2)
-        self._write_tape(tape, t, ok, wsel, vals, pe, h2, h1, vals[..., None])
-        self._record_hist(ht, t, E, valid_t, h2, h1)
+        self._write_tape(tape, ok, wsel, vals, pe, h2, h1, vals[..., None])
+        self._record_hist(ht, t, valid_t, h2, h1)
         return vals, ok, h2, h1
 
     def _exit_cols(self, ex, exh):
@@ -867,7 +953,7 @@ class NgramSearch(nn.Module):
             return ex[..., xb: xb + W], exh[..., xb: xb + W]
         return ex[..., self._exit_col], exh[..., self._exit_col]
 
-    def _step_tree(self, carry, sen_t, t: int, valid_t, tape, la_t=None):
+    def _step_tree(self, carry, sen_t, t, valid_t, tape, la_t=None):
         """One frame of the prefix-tree core with one tree copy: the
         reference's `_make_core_tree` (N = 1) and `_make_core_tree_batched`
         in one step.  Tokens carry an 8-bit entry age (255 = the initial
@@ -898,8 +984,8 @@ class NgramSearch(nn.Module):
             # exact cancellation at the exit readout (0 on padded frames,
             # whose rows are never read).
             corr = self._bgla_rows(h2[:, 0])                      # [B, R]
-            ct[:, t * R: (t + 1) * R] = torch.where(valid_t[:, None], corr,
-                                                    0.0)
+            ct.index_copy_(1, t * R + self._ar_ct,
+                           torch.where(valid_t[:, None], corr, 0.0))
             entry_base[:, self._roots] += corr
         ie = self._is_entry
         alpha, (hist,) = hmm_enter(
@@ -909,7 +995,7 @@ class NgramSearch(nn.Module):
         return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
                 ht, ct)
 
-    def _step_tree_copies(self, carry, sen_t, t: int, valid_t, tape,
+    def _step_tree_copies(self, carry, sen_t, t, valid_t, tape,
                           la_t=None):
         """One frame of the tree core with N > 1 copies (the reference's
         `_make_core_tree`, N > 1): the copies' exits merge per word (best
@@ -961,8 +1047,8 @@ class NgramSearch(nn.Module):
         if self.use_bgla:
             corr = self._bgla_rows(torch.stack(hsels, 1).reshape(-1))
             corr = corr.view(B, N, R)
-            ct[:, t * N * R: (t + 1) * N * R] = torch.where(
-                valid_t[:, None], corr.reshape(B, N * R), 0.0)
+            ct.index_copy_(1, t * (N * R) + self._ar_ct, torch.where(
+                valid_t[:, None], corr.reshape(B, N * R), 0.0))
             entry_base[..., self._roots] += corr
         ie = self._is_entry
         alpha, (hist,) = hmm_enter(
@@ -973,58 +1059,161 @@ class NgramSearch(nn.Module):
                 ht, ct)
 
     # ------------------------------------------------------------------
+    def _block_len(self, B: int, n: int) -> int:
+        """Frames a block of a scan of n frames at batch B: the largest
+        divisor of gcd(n, FRAME_BUCKET) whose expanded senone scores (the
+        static and tree steps) fit in EXPAND_BLOCK_BYTES.  A batch (n a
+        multiple of FRAME_BUCKET) and a stream's chunk (n = CHUNK) so run
+        whole blocks of one length: one captured graph a shape."""
+        base = math.gcd(n, self.FRAME_BUCKET)
+        cap = base
+        if self._fast:
+            g = self.graph
+            per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
+            cap = min(cap, EXPAND_BLOCK_BYTES // per_frame)
+        return max(d for d in range(1, max(1, cap) + 1) if base % d == 0)
+
+    def _side_frames(self, Tpad: int) -> int:
+        """Frames the static and tree steps' side-tables hold for a batch
+        of Tpad frames: FRAME_BUCKET times a power of two, so that batches
+        of nearby lengths share a captured graph.  Rows past Tpad are never
+        read."""
+        n = -(-Tpad // self.FRAME_BUCKET)
+        return self.FRAME_BUCKET << max(0, (n - 1).bit_length())
+
+    def _block(self, carry, scores: torch.Tensor, t: torch.Tensor,
+               valid: torch.Tensor, tape, la: Optional[torch.Tensor] = None):
+        """One block: frames t .. t+K-1 of the senone scores [B, K, n_sen]
+        (valid [B, K]; the lookahead la [B, K, n_ci] or None) through the
+        graph's frame step, the frame index t a 0-d int64 tensor advanced
+        on the device; writes row k of the block's tape [B, K, E(, Vr)]
+        for frame t+k and returns the carry.  The static and tree steps
+        expand the block's senones first (the expansion is elementwise,
+        so the block changes no result).  Nothing here reads a device
+        value on the host, so the block can be captured."""
+        if not self._fast:
+            step, sen = self._step_mpx, scores.unbind(1)
+        else:
+            step = (self._step_static if not self._tree else
+                    self._step_tree if self.nlextree == 1 else
+                    self._step_tree_copies)
+            sen = self._expand_block(scores)
+        for k in range(scores.shape[1]):
+            carry = step(carry, sen[k], t, valid[:, k],
+                         tuple(a[:, k] for a in tape),
+                         None if la is None else la[:, k])
+            t = t + 1
+        return carry
+
     def _scan(self, carry, scores: torch.Tensor, t0: int,
               valid: torch.Tensor, tape, la: Optional[torch.Tensor] = None):
         """Frames t0 .. t0+n-1 of the senone scores [B, n, n_sen] (valid
-        [B, n]; the phone-loop lookahead la [B, n, n_ci] or None) through
-        the graph's frame step; writes their tape rows and returns the
-        carry.  The static and tree steps expand a block of frames'
-        senones at a time (the expansion is elementwise, so the block
-        changes no result)."""
+        [B, n]; the phone-loop lookahead la [B, n, n_ci] or None) block by
+        block (`_block_len`); writes their rows t0 .. t0+n-1 of the tape
+        and returns the carry.  On the card each block is a replay of a
+        captured graph (`_scan_graphed`)."""
         B, n = scores.shape[0], scores.shape[1]
-
-        def la_at(k):
-            return None if la is None else la[:, k]
-
-        if not self._fast:
-            for k in range(n):
-                carry = self._step_mpx(carry, scores[:, k], t0 + k,
-                                       valid[:, k], tape, la_at(k))
-            return carry
-        g = self.graph
-        step = (self._step_static if not self._tree else
-                self._step_tree if self.nlextree == 1 else
-                self._step_tree_copies)
-        per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
-        KB = max(1, min(self.FRAME_BUCKET, EXPAND_BLOCK_BYTES // per_frame))
-        for k0 in range(0, n, KB):
-            sen = self._expand_block(scores[:, k0: k0 + KB])
-            for k in range(sen.shape[0]):
-                carry = step(carry, sen[k], t0 + k0 + k, valid[:, k0 + k],
-                             tape, la_at(k0 + k))
+        if self._graphs and scores.is_cuda:
+            return self._scan_graphed(carry, scores, t0, valid, tape, la)
+        K = self._block_len(B, n)
+        for k0 in range(0, n, K):
+            sl = slice(k0, k0 + K)
+            t = torch.full((), t0 + k0, dtype=torch.int64,
+                           device=scores.device)
+            carry = self._block(carry, scores[:, sl], t, valid[:, sl],
+                                tuple(a[:, t0 + k0: t0 + k0 + K]
+                                      for a in tape),
+                                None if la is None else la[:, sl])
         return carry
+
+    def _scan_graphed(self, carry, scores, t0: int, valid, tape, la):
+        """`_scan` through captured blocks.  The carry goes into the
+        block's graph once, stays in its buffers from replay to replay,
+        and comes out as a copy; after each replay the graph's K tape rows
+        are copied into the caller's tape.  Neither the returned carry nor
+        the tape shares memory with the graph, so decodes and interleaved
+        streams do not disturb one another.  A last block shorter than
+        `_block_len` (only where the caller chose the block length) replays
+        a graph of its own length."""
+        B, n = scores.shape[0], scores.shape[1]
+        K = self._block_len(B, n)
+        cur = None
+        with torch.cuda.device(scores.device), torch.inference_mode():
+            for k0 in range(0, n, K):
+                sl = slice(k0, k0 + K)
+                blk = (scores[:, sl], valid[:, sl],
+                       None if la is None else la[:, sl])
+                g = self._block_graph(carry, blk, t0 + k0, tape)
+                if g is not cur:
+                    if cur is not None:
+                        carry = cur.carry
+                    for a, b in zip(g.carry, carry):
+                        a.copy_(b)
+                    cur = g
+                g.replay(self, blk, t0 + k0)
+                self._graph_stats["replays"] += 1
+                rows = slice(t0 + k0, t0 + k0 + blk[0].shape[1])
+                for a, b in zip(tape, g.tape):
+                    a[:, rows].copy_(b)
+            return tuple(c.clone() for c in cur.carry)
+
+    def _block_graph(self, carry, blk, t0: int, tape) -> _BlockGraph:
+        """The captured block for these shapes (the carry's, so the
+        side-tables' sizes; the block inputs', so batch and block length;
+        a tape row's), captured now on these values if the cache has
+        none.  The search's graphs share one memory pool: they replay one
+        at a time, and each keeps what outlives a replay in buffers of its
+        own."""
+        key = tuple(None if x is None else (tuple(x.shape), x.dtype)
+                    for x in (*carry, *blk)) + tuple(
+            (tuple(a.shape[2:]), a.dtype) for a in tape)
+        g = self._graph_cache.pop(key, None)
+        if g is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            t_start = time.perf_counter()
+            g = _BlockGraph(self, carry, blk, t0, tape)
+            self._graph_stats["captures"] += 1
+            self._graph_stats["capture_s"] += time.perf_counter() - t_start
+            while len(self._graph_cache) >= GRAPH_CACHE:
+                self._graph_cache.popitem(last=False)
+        self._graph_cache[key] = g
+        return g
+
+    def _tape(self, B: int, frames: int, fill: bool = False) -> tuple:
+        """Tape arrays (tw, tsc, tprev, th2, th1 [B, frames, E]; trc [B,
+        frames, E, Vr]); with `fill`, every slot reads as no word (a
+        stream's tape, read before all of it is written)."""
+        E, Vr, dev = self.E, self.graph.n_rcvar, self.device
+        specs = ((torch.int32, -1), (torch.float32, NEG_INF),
+                 (torch.int32, -1), (torch.int32, -1), (torch.int32, -1),
+                 (torch.float32, NEG_INF))
+        out = []
+        for i, (dt, v) in enumerate(specs):
+            shape = (B, frames, E) + ((Vr,) if i == 5 else ())
+            out.append(torch.full(shape, v, dtype=dt, device=dev) if fill
+                       else torch.empty(shape, dtype=dt, device=dev))
+        return tuple(out)
 
     def device_decode(self, feats: torch.Tensor, valid: torch.Tensor):
         """Padded feats [B, Tpad, D] + valid mask [B, Tpad] -> backpointer
         tapes (tw, tsc, tprev, th2, th1 [B, Tpad*E]; trc [B, Tpad*E, Vr]),
         slot = t*E + e."""
-        B, Tpad = feats.shape[0], feats.shape[1]
-        g, E = self.graph, self.E
-        Vr = g.n_rcvar
-        dev = self.device
-        scores = self.scorer.score(feats)                         # [B, Tpad, n_sen]
+        return self._viterbi(self.scorer.score(feats), valid)
+
+    def _viterbi(self, scores: torch.Tensor, valid: torch.Tensor):
+        """`device_decode` from the senone scores [B, Tpad, n_sen]: the
+        lookahead, then the frame loop; no host read."""
+        B, Tpad = scores.shape[0], scores.shape[1]
+        E, Vr = self.E, self.graph.n_rcvar
         la = self._lookahead(scores, Tpad) if self.pl_window else None
-        tape = tuple(torch.empty((B, Tpad, E), dtype=dt, device=dev)
-                     for dt in (torch.int32, torch.float32, torch.int32,
-                                torch.int32, torch.int32)) + (
-            torch.empty((B, Tpad, E, Vr), dtype=torch.float32, device=dev),)
-        carry = (self._init_static(B, Tpad) if self._fast
+        tape = self._tape(B, Tpad)
+        carry = (self._init_static(B, self._side_frames(Tpad)) if self._fast
                  else self._init_hmmc(B))
         self._scan(carry, scores, 0, valid, tape, la)
-        tw, tsc, tprev, th2, th1, trc = tape
         n = Tpad * E
-        return (tw.view(B, n), tsc.view(B, n), tprev.view(B, n),
-                th2.view(B, n), th1.view(B, n), trc.view(B, n, Vr))
+        return tuple(a.view(B, n) for a in tape[:5]) + (
+            tape[5].view(B, n, Vr),)
 
     # ------------------------------------------------------------------
     def device_backtrace(self, tape, T: torch.Tensor) -> torch.Tensor:
@@ -1174,17 +1363,6 @@ class NgramSearch(nn.Module):
     # 699-719, and the gst plugin's partial results).
     CHUNK = 50
 
-    def _new_tape(self, frames: int) -> tuple:
-        """A stream's tape for `frames` frames ([1, frames, E] rows; trc
-        [1, frames, E, Vr]), filled as unwritten slots read: no word."""
-        E, Vr, dev = self.E, self.graph.n_rcvar, self.device
-        fills = ((torch.int32, -1), (torch.float32, NEG_INF),
-                 (torch.int32, -1), (torch.int32, -1), (torch.int32, -1))
-        return tuple(torch.full((1, frames, E), v, dtype=dt, device=dev)
-                     for dt, v in fills) + (
-            torch.full((1, frames, E, Vr), NEG_INF, dtype=torch.float32,
-                       device=dev),)
-
     @torch.inference_mode()
     def stream_start(self, max_frames: int = 3000) -> dict:
         """Begin a streaming utterance; returns its state (the carry and
@@ -1192,7 +1370,7 @@ class NgramSearch(nn.Module):
         doubles when the audio runs past it (acmod_set_grow semantics)."""
         carry = (self._init_static(1, max_frames) if self._fast
                  else self._init_hmmc(1))
-        return {"carry": carry, "tape": self._new_tape(max_frames), "t": 0,
+        return {"carry": carry, "tape": self._tape(1, max_frames, fill=True), "t": 0,
                 "max_frames": max_frames,
                 "pending": np.zeros((0, 0), np.float32)}
 
@@ -1203,7 +1381,7 @@ class NgramSearch(nn.Module):
         while state["t"] + need_frames > state["max_frames"]:
             F = state["max_frames"]
             state["tape"] = tuple(torch.cat([a, b], 1) for a, b in zip(
-                state["tape"], self._new_tape(F)))
+                state["tape"], self._tape(1, F, fill=True)))
             if self._fast:
                 alpha, hist, ht, *ct = state["carry"]
                 ht = torch.cat([ht, torch.full_like(ht, -1)], 1)

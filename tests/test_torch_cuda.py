@@ -33,7 +33,7 @@ import torch
 
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.models.gauden import GaussianParams
-from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.decode import NgramSearch, ngram_search
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, InterpolatedScorer,
                                      PsParityScorer, PTMScorer,
@@ -881,3 +881,219 @@ def test_tools_fe_on_card_matches_cpu(cuda, tmp_path, monkeypatch, capsys):
         want = read_mfc(str(tmp_path / "host" / f"p{i}.mfc"))
         assert got.shape == want.shape and len(got)
         assert np.all(np.abs(got.astype(np.float64) - want) <= b)
+
+
+# ---- the N-gram frame loop as captured CUDA graphs -------------------------
+
+GRAPH_CASES = {
+    "mpx": ("SMALL", {}),
+    "mpx_lookahead": ("SMALL", {"pl_window": 5, "pl_weight": 2.0}),
+    "static": ("MEDIUM", {"lexmode": "flat"}),
+    "tree": ("MEDIUM", {"lexmode": "tree"}),
+    "tree_copies": ("MEDIUM", {"lexmode": "tree", "nlextree": 2}),
+    "tree_copies_lookahead": ("MEDIUM", {"lexmode": "tree", "nlextree": 3,
+                                         "pl_window": 3}),
+}
+
+
+def _card_search(cuda, fx, **kw):
+    return NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
+                       ContinuousScorer(fx.gauden, fx.ln_mixw, device=cuda),
+                       device=cuda, **kw)
+
+
+def _run(s, graphs: bool, fn):
+    """fn() with the search's frame loop graphed or eager; returns (its
+    result, the LM calls it made)."""
+    s._graphs = graphs
+    s.dlm.calls.clear()
+    try:
+        out = fn()
+    finally:
+        s._graphs = True
+    torch.cuda.synchronize()
+    return out, dict(s.dlm.calls)
+
+
+def _stream(s, feats, push=37, max_frames=100):
+    st = s.stream_start(max_frames=max_frames)
+    for i in range(0, len(feats), push):
+        s.stream_push(st, feats[i: i + push])
+    hyp = s.stream_end(st)
+    return hyp, [t.clone() for t in st["tape"]], st["max_frames"]
+
+
+def _assert_same_hyps(a, b):
+    for x, y in zip(a, b, strict=True):
+        assert x.words == y.words and x.score == y.score
+        assert [(s.word, s.start_frame, s.end_frame) for s in x.segments] \
+            == [(s.word, s.start_frame, s.end_frame) for s in y.segments]
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_frame_loop_bit_equal_to_eager(cuda, case):
+    """Each step kind on the card: the batch, a batch whose blocks of 37
+    frames leave a shorter last one, and a stream (37-frame pushes from a
+    100-frame tape that grows) through captured graphs against the eager
+    loop (`_graphs = False`): tapes bit-equal, hypotheses and scores
+    equal, `DeviceNgram.calls` equal; the graphed runs captured blocks
+    and replayed them."""
+    size, kw = GRAPH_CASES[case]
+    fx = fixture.build(0, size=getattr(fixture, size))
+    s = _card_search(cuda, fx, **kw)
+    fp = FeatPipeline(fx.feat_config(), device=cuda)
+
+    def batch():
+        hyps = s.decode_batch_cep(fx.ceps, fp)
+        return hyps, [t.clone() for t in s._last_batch[0]]
+
+    for block in (None, 37):
+        if block:
+            s._block_len = lambda B, n: block
+        (gh, gt), gcalls = _run(s, True, batch)
+        (eh, et), ecalls = _run(s, False, batch)
+        _assert_same_hyps(gh, eh)
+        assert all(torch.equal(a, b) for a, b in zip(gt, et))
+        assert gcalls == ecalls and sum(ecalls.values()) > 0
+    assert s._graph_stats["captures"] >= 3   # 100 frames; 37, the last
+    feats = FeatPipeline(fx.feat_config(), device="cpu").compute(fx.ceps[1])
+    (gh, gt, gF), gcalls = _run(s, True, lambda: _stream(s, feats))
+    (eh, et, eF), ecalls = _run(s, False, lambda: _stream(s, feats))
+    _assert_same_hyps([gh], [eh])
+    assert gF == eF > 100 and gcalls == ecalls
+    assert all(torch.equal(a, b) for a, b in zip(gt, et))
+    assert len(s._graph_cache) <= ngram_search.GRAPH_CACHE
+    assert s._graph_stats["replays"] > 0
+
+
+@pytest.mark.parametrize("case", ["mpx", "static", "tree"])
+def test_graphed_mixed_lengths_share_graphs(cuda, case):
+    """Utterances one at a time in nine 100-frame buckets: the mpx step
+    replays one graph for all of them (its key holds no frame count), the
+    static and tree steps one a side-table size (100 frames times a power
+    of two: 100 .. 1600); each decode bit-equal to the eager loop's."""
+    size, kw = GRAPH_CASES[case]
+    fx = fixture.build(0, size=getattr(fixture, size))
+    s = _card_search(cuda, fx, **kw)
+    fp = FeatPipeline(fx.feat_config(), device=cuda)
+    pool = np.concatenate(fx.ceps * (-(-900 // sum(map(len, fx.ceps))) + 1))
+    ceps = [pool[7 * b: 100 * b + 50 + 7 * b] for b in range(9)]
+    for c in ceps:
+        (gh, gt), _ = _run(s, True, lambda: (
+            s.decode_batch_cep([c], fp), [t.clone() for t in s._last_batch[0]]))
+        (eh, et), _ = _run(s, False, lambda: (
+            s.decode_batch_cep([c], fp), [t.clone() for t in s._last_batch[0]]))
+        _assert_same_hyps(gh, eh)
+        assert all(torch.equal(a, b) for a, b in zip(gt, et))
+    want = 1 if case == "mpx" else len({s._side_frames(len(c)) for c in ceps})
+    assert s._graph_stats["captures"] == len(s._graph_cache) == want
+    assert s._graph_pool is not None
+
+
+@pytest.mark.parametrize("case", ["mpx", "tree"])
+def test_graphed_streams_interleaved(cuda, case):
+    """Two streams in flight on one search, pushed in turn, each equal
+    (tapes bit-equal, final hypotheses) to its run alone."""
+    size, kw = GRAPH_CASES[case]
+    fx = fixture.build(0, size=getattr(fixture, size))
+    s = _card_search(cuda, fx, **kw)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    feats = [fp.compute(fx.ceps[i]) for i in (0, 1)]
+    alone = [_stream(s, f, max_frames=3000) for f in feats]
+    sts = [s.stream_start(max_frames=3000) for _ in feats]
+    for i in range(0, max(len(f) for f in feats), 37):
+        for st, f in zip(sts, feats):
+            s.stream_push(st, f[i: i + 37])
+    for st, (hyp, tape, _) in zip(sts, alone):
+        _assert_same_hyps([s.stream_end(st)], [hyp])
+        assert all(torch.equal(a, b) for a, b in zip(st["tape"], tape))
+
+
+def test_graphed_decode_keeps_earlier_tapes(cuda):
+    """A tape returned by one decode is not overwritten by the next decode
+    of the same shapes (the same graphs replayed)."""
+    fx = fixture.build(0, size=fixture.MEDIUM)
+    s = _card_search(cuda, fx, lexmode="tree")
+    fp = FeatPipeline(fx.feat_config(), device=cuda)
+    s.decode_batch_cep(fx.ceps[:2], fp)
+    first = s._last_batch[0]
+    kept = [t.clone() for t in first]
+    n = s._graph_stats["captures"]
+    s.decode_batch_cep(fx.ceps[1:3], fp)
+    torch.cuda.synchronize()
+    assert s._graph_stats["captures"] == n     # replayed, not recaptured
+    assert not all(torch.equal(a, b) for a, b in zip(s._last_batch[0], kept))
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+
+
+def test_graphed_replays_make_no_host_sync(cuda):
+    """Once captured, the frame loop of a batch (`_viterbi`) replays under
+    torch.cuda.set_sync_debug_mode("error")."""
+    fx = fixture.build(0, size=fixture.MEDIUM)
+    for kw in ({"lexmode": "tree", "pl_window": 3}, {"lexmode": "flat"}):
+        s = _card_search(cuda, fx, **kw)
+        fp = FeatPipeline(fx.feat_config(), device=cuda)
+        with torch.inference_mode():
+            c, T, _ = s._pad(fx.ceps)
+            valid = (torch.arange(c.shape[1], device=cuda)[None, :]
+                     < T[:, None])
+            scores = s.scorer.score(fp._padded_kernel(c, T, True))
+            want = s._viterbi(scores, valid)
+            torch.cuda.synchronize()
+            n = s._graph_stats["captures"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = s._viterbi(scores, valid)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert n >= 1 and s._graph_stats["captures"] == n
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+_FAILED_CAPTURE = """
+import sys, torch
+from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.frontend import FeatPipeline
+from cmusphinx_tpu_torch.ops import ContinuousScorer
+fx = fixture.build(0, size=fixture.SMALL)
+feats = FeatPipeline(fx.feat_config(), device="cpu").compute(fx.ceps[0])
+host = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+
+class HostScores(torch.nn.Module):
+    # The CPU scorer's scores moved to the card (no kernel build).
+    def score(self, x):
+        return host.score(x.cpu()).to(x.device)
+
+s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, HostScores(),
+                device="cuda")
+prune = s._prune
+def reads_host(*a, **k):
+    out = prune(*a, **k)
+    float(out[0].amax())
+    return out
+s._prune = reads_host
+try:
+    h = s.decode(feats)
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0][:200])
+    print("cached:", len(s._graph_cache))
+    sys.exit(0)
+print("decoded without raising:", h.words)
+sys.exit(1)
+"""
+
+
+def test_graph_capture_with_a_host_read_raises(cuda, tmp_path):
+    """A host read inside a block fails its capture, and the decode
+    raises: no eager fallback, nothing cached.  In a process of its own,
+    so that the failed capture leaves this one's card state alone."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "raised:" in r.stdout and "cached: 0" in r.stdout
