@@ -87,16 +87,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 16. grammar: Decoder(hmm=, jsgf=) and (hmm=, fsg=) on the continuous
    fixture's model directory with its grammar (fixture.grammar_jsgf /
    grammar_fsg): 16 utterances through decode_cep_file, counted (K1 once an
-   utterance), ms an utterance on the host clock and in CUDA events, xRT,
-   WER; the last utterance's lattice (bestpath, nbest(5)); utterance 0
-   through the FSG stream in 50-frame pushes (K1 once a chunk), its final
-   equal to the batch's; held against the CPU (`Holds`): utterance 0 end
-   to end, and all 16 utterances through the CPU grammar search fed the
-   card's senone scores (the counted decodes' exit tapes, integers equal,
-   floats within rtol 1e-5; hypotheses equal).
+   utterance), ms an utterance on the host clock and in CUDA events, ms a
+   frame, xRT, WER; the last utterance's lattice (bestpath, nbest(5));
+   utterance 0 through the FSG stream in 50-frame pushes (K1 once a
+   chunk), its final equal to the batch's; held against the CPU (`Holds`):
+   utterance 0 end to end, and all 16 utterances through the CPU grammar
+   search fed the card's senone scores (the counted decodes' exit tapes,
+   integers equal, floats within rtol 1e-5; hypotheses equal).  The frame
+   loop runs as captured CUDA graphs of 50-frame blocks (the default; one
+   graph a search); the 16 utterances again eager (`FsgSearch._graphs =
+   False`) and graphed, and the streams of STREAM_UTTS utterances in turns:
+   exit tapes, hypotheses and partials bit-equal; each way's ms an
+   utterance, ms a frame, xRT and push -> partial p50 / p99.
 17. align_allphone: Decoder.align of 4 utterances with their transcripts
-   (states and segments equal to the CPU's, K1 launched once each), and an
-   -allphone uniform decode against the CPU's (K1 once).
+   (states and segments equal to the CPU's, K1 launched once each), then
+   eager and graphed again (states, segments and scores bit-equal; ms an
+   utterance and a frame each way), and an -allphone uniform decode
+   against the CPU's (K1 once).
 18. ngram_options: pl_window=5 on the continuous slice (the batch counted,
    K1 once, and all 16 utterances held against the CPU search on its
    senone scores; two utterances streamed, K1 once a chunk, their tapes
@@ -192,11 +199,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    replay of each batch's frame loop under
    torch.cuda.set_sync_debug_mode("error").
 
+33. graphs_search: cold, mixed traffic through the grammar, alignment and
+   phone-loop frame loops: the 16 utterances one at a time through
+   Decoder(jsgf=) and Decoder(fsg=), with their transcripts (distinct
+   lengths and state counts) through Decoder.align (and again with the
+   aligner's state bucket off), and through PhoneLoopSearch; each graphed
+   from an empty graph cache (cold), eager, and graphed again (warm: no
+   capture), every result bit-equal to the eager run's, K1 once an
+   utterance exactly; seconds of each, captures and their seconds, graphs
+   held and their card memory (allocated, reserved), one replay of each
+   search's frame loop under torch.cuda.set_sync_debug_mode("error"), and
+   the device's events, busy ms and idle share over a PROFILE_FRAMES
+   window of each frame loop, graphed and eager.
+
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
 23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
-13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11.
+13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11,
+phase 33 after 17.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -229,6 +250,7 @@ from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.decode import lattice as lattice_mod
 from cmusphinx_tpu_torch.decode.align import AlignSearch
 from cmusphinx_tpu_torch.decode.align_tp import _pred_table, align_time_parallel
+from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
                                      SemiContinuousScorer, approx, fused_gmm,
@@ -1325,15 +1347,23 @@ def device_busy_ms(prof) -> tuple:
 
 
 @contextlib.contextmanager
-def frame_loop(search, graphs: bool):
-    """The search's frame loop graphed or eager for the block's duration;
-    its LM calls counted from 0."""
+def frames_graphed(search, graphs: bool):
+    """A search's frame loop graphed or eager (`_graphs = False`) for the
+    block's duration."""
     search._graphs = graphs
-    search.dlm.calls.clear()
     try:
         yield
     finally:
         search._graphs = True
+
+
+@contextlib.contextmanager
+def frame_loop(search, graphs: bool):
+    """An N-gram search's frame loop graphed or eager for the block's
+    duration; its LM calls counted from 0."""
+    search.dlm.calls.clear()
+    with frames_graphed(search, graphs):
+        yield
 
 
 def busy_and_idle(fn) -> dict:
@@ -1379,13 +1409,12 @@ def release_graphs(search) -> dict:
     pool), measured across the drop with the allocator's caches
     emptied."""
     import gc
-    n = len(search._graph_cache)
+    n = len(search._runner.cache)
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
     a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    search._graph_cache.clear()
-    search._graph_pool = None
+    search._runner.release()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1510,9 +1539,9 @@ def graph_stream_cell(search, feats_list, utts, card: str) -> dict:
 def graph_shapes(search) -> list:
     """[batch, block frames, side-table frames (static and tree steps;
     else None)] of each graph the search holds."""
-    return [[*g.scores.shape[:2], g.carry[2].shape[1] // search.E
+    return [[*g.inputs[0].shape[:2], g.carry[2].shape[1] // search.E
              if search._fast else None]
-            for g in search._graph_cache.values()]
+            for g in search._runner.cache.values()]
 
 
 def traffic(fx, seed: int) -> list:
@@ -1634,6 +1663,177 @@ def phase_graphs(cells: dict) -> dict:
            if not all(v.get(x, True) for x in keys)}
     if bad:
         raise AssertionError(f"graphs: graphed and eager differ: {bad}")
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase "graphs_search": the grammar, alignment and phone-loop frame loops
+# through captured CUDA graphs (their default) against the eager blocks,
+# on cold, mixed traffic: the slice's utterances one at a time, in their
+# own lengths and state counts.
+
+TRAFFIC_MODES = ("graphed_cold", "eager", "graphed_warm")
+
+
+def search_traffic(get_search, items, run_one, same) -> dict:
+    """`items` one at a time through `run_one`, in each of TRAFFIC_MODES
+    (the first from an empty graph cache: every new shape captures); each
+    result held to the eager run's (`same`), K1 counted (once an item,
+    exactly).  `get_search()` is the search whose runner serves
+    (None before a first call builds it).  The wall of each mode, its
+    captures, their seconds and its replays."""
+    res = {}
+    for m in TRAFFIC_MODES:
+        s = get_search()
+        before = dict(s._runner.stats) if s is not None else {
+            "captures": 0, "capture_s": 0.0, "replays": 0}
+        outs = []
+        fused_mixture_scores.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if m == "eager":
+                stack.enter_context(frames_graphed(s, False))
+            for x in items:
+                outs.append(run_one(x))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = get_search()._runner.stats
+        res[m] = {"wall_s": wall,
+                  "k1_launches": fused_mixture_scores.launches,
+                  **{k: st[k] - before[k]
+                     for k in ("captures", "capture_s", "replays")},
+                  "outs": outs}
+    for m in TRAFFIC_MODES:
+        res[m]["equal_to_eager"] = all(
+            same(a, b) for a, b in zip(res[m]["outs"], res["eager"]["outs"]))
+    for m in TRAFFIC_MODES:
+        res[m].pop("outs")
+    res["k1_exact"] = all(res[m]["k1_launches"] == len(items)
+                          for m in TRAFFIC_MODES)
+    return res
+
+
+def replay_check(search, run) -> dict:
+    """`run()` (a search's device-only `_scan`, its inputs on the card)
+    once to warm up, then once under torch.cuda.set_sync_debug_mode
+    ("error"): `replay_sync_free` (no host sync) and
+    `replayed_without_capture` (no capture), as phase 32 reads them."""
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        n = search._runner.stats["captures"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+            ok = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return {"replay_sync_free": ok,
+            "replayed_without_capture": search._runner.stats["captures"] == n}
+
+
+def search_windows(search, run) -> dict:
+    """The device's work over one PROFILE_FRAMES window of a search's
+    device-only `_scan` (`run`), graphed and eager (`busy_and_idle`):
+    device events, busy ms and the idle share, each way."""
+    out = {}
+    for m in ("graphed", "eager"):
+        with frames_graphed(search, m == "graphed"), torch.inference_mode():
+            out[m] = busy_and_idle(run)
+    return out
+
+
+def phase_graphs_search(dev, fx, tmp: str, card: str) -> dict:
+    """Cold, mixed traffic through the grammar Decoders (each of the
+    slice's 16 utterances once, one at a time), `Decoder.align` (the 16
+    with their transcripts: distinct lengths and state counts; then again
+    with the state bucket off, STATE_BUCKET = 1, its graphed and eager
+    cost beside the bucket's) and the phone loop (the 16): graphed cold,
+    eager, graphed warm, each result held to the eager run's.  The
+    graphs each search holds, their card memory, and one replay under the
+    sync debug mode."""
+    kw = fixture.write_model_dir(fx, os.path.join(tmp, "graphs_search"))
+    mfcs = []
+    for i, c in enumerate(fx.ceps):
+        mfcs.append(os.path.join(tmp, "graphs_search", f"u{i}.mfc"))
+        write_mfc(mfcs[-1], c)
+    cells = {}
+    for key in GRAMMARS:
+        dec = Decoder(device=dev, hmm=kw["hmm"], dict=kw["dict"], **{
+            key: os.path.join(tmp, "graphs_search", "grammar." + key)})
+        search = dec.search
+
+        def one(p):
+            h = dec.decode_cep_file(p)
+            return segs(h), [np.copy(a) for a in search._last[:4]]
+        r = search_traffic(lambda: search, mfcs, one,
+                           lambda a, b: a[0] == b[0]
+                           and equal_arrays(a[1], b[1]))
+        T = len(fx.ceps[0])
+        with torch.inference_mode():
+            sc = dec.scorer.score(torch.as_tensor(dec.fp.compute(fx.ceps[0]),
+                                                  device=dev))
+            padded = torch.cat([sc, sc.new_zeros(
+                (-(-T // search.FRAME_BUCKET) * search.FRAME_BUCKET - T,
+                 sc.shape[1]))])
+        r.update(replay_check(search, lambda: search._scan(
+            search._init_carry(), padded, 0, T)))
+        r["window"] = search_windows(search, lambda: search._scan(
+            search._init_carry(), sc[:PROFILE_FRAMES], 0, PROFILE_FRAMES))
+        r["graphs_cached"] = len(search._runner.cache)
+        r["graph_memory"] = release_graphs(search)
+        cells[key] = r
+    ad = Decoder(device=dev, **kw)
+    feats = [ad.fp.compute(c) for c in fx.ceps]
+    items = list(zip(feats, fx.transcripts))
+    r = search_traffic(lambda: ad._aligner,
+                       items, lambda x: ad.align(*x), same_alignment)
+    al = ad._aligner
+    b = al._build(fx.transcripts[0])
+    hmm = al._pad_states(b[0], b[1], b[4], b[5])
+    r.update(replay_check(al, lambda: al._scan(sc, *hmm)))
+    r["window"] = search_windows(al, lambda: al._scan(
+        sc[:PROFILE_FRAMES + 1], *hmm))
+    r["graphs_cached"] = len(al._runner.cache)
+    r["graph_memory"] = release_graphs(al)
+    # The bucket's cost: the same traffic on the unpadded sentence HMMs
+    # (one graph a state count).
+    al.STATE_BUCKET = 1
+    r["unpadded"] = search_traffic(lambda: al, items,
+                                   lambda x: ad.align(*x), same_alignment)
+    r["unpadded"]["graphs_cached"] = len(al._runner.cache)
+    release_graphs(al)
+    al.STATE_BUCKET = AlignSearch.STATE_BUCKET
+    states = [len(al._build(w)[0]) for w in fx.transcripts]
+    r.update({"state_bucket": al.STATE_BUCKET, "states": states,
+              "padded_states": sorted({-(-n // al.STATE_BUCKET)
+                                       * al.STATE_BUCKET for n in states})})
+    cells["align"] = r
+    loop = PhoneLoopSearch(fx.mdef, fx.tmat, ad.scorer, device=dev)
+    r = search_traffic(lambda: loop, feats, loop._run, equal_arrays)
+    r.update(replay_check(loop, lambda: loop._scan(sc)))
+    r["window"] = search_windows(loop, lambda: loop._scan(
+        sc[:PROFILE_FRAMES]))
+    r["graphs_cached"] = len(loop._runner.cache)
+    r["graph_memory"] = release_graphs(loop)
+    cells["phone_loop"] = r
+    frames = sum(len(c) for c in fx.ceps)
+    out = {"phase": "graphs_search", "card": card, "utterances": len(mfcs),
+           "frames": frames, "audio_s": frames / 100.0, "cells": cells}
+    emit(out)
+    bad = {k: v for k, v in cells.items()
+           if not (v["replay_sync_free"] and v["replayed_without_capture"]
+                   and v["k1_exact"]
+                   and v["graphed_warm"]["captures"] == 0
+                   and all(v[m]["equal_to_eager"] for m in TRAFFIC_MODES))}
+    if cells["align"]["unpadded"]["graphed_warm"]["captures"] or not all(
+            cells["align"]["unpadded"][m]["equal_to_eager"]
+            for m in ("graphed_cold", "graphed_warm")):
+        bad["align_unpadded"] = cells["align"]["unpadded"]
+    if bad:
+        raise AssertionError(f"graphs_search: graphed and eager differ: {bad}")
     return out
 
 
@@ -1814,10 +2014,60 @@ def phase_decoder_wide(dev, fx) -> dict:
     return out
 
 
+def grammar_pass(dec, search, mfcs) -> dict:
+    """The utterances' files through the Decoder, one at a time: each
+    one's host ms and CUDA-event ms, its segments and exit tapes."""
+    out = {"host_ms": [], "dev_ms": [], "hyps": [], "exits": []}
+    for p in mfcs:
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        h = dec.decode_cep_file(p)
+        ev1.record()
+        torch.cuda.synchronize()
+        out["host_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["dev_ms"].append(ev0.elapsed_time(ev1))
+        out["hyps"].append(h)
+        out["exits"].append([np.copy(a) for a in search._last[:4]])
+    return out
+
+
+def grammar_stream(search, feats) -> dict:
+    """One utterance through the FSG stream in CHUNK pushes, a partial
+    after each: push -> partial ms (host clock; the partial reads the
+    chunk's exits on the host, so it waits for the device), the final's
+    segments and its exit tapes."""
+    st = search.stream_start()
+    lat, partials = [], []
+    t_start = time.perf_counter()
+    for i in range(0, len(feats), T_STREAM):
+        t0 = time.perf_counter()
+        search.stream_push(st, feats[i: i + T_STREAM])
+        partials.append(search.stream_partial(st).words)
+        lat.append(1e3 * (time.perf_counter() - t0))
+    final = search.stream_end(st)
+    return {"lat_ms": lat, "wall_s": time.perf_counter() - t_start,
+            "partials": partials, "final": segs(final),
+            "exits": [np.copy(a) for a in search._last[:4]]}
+
+
+def summary(host_ms, dev_ms, frames: int) -> dict:
+    return {"ms_per_utt_host": statistics.median(host_ms),
+            "ms_per_utt_cuda_events": statistics.median(dev_ms),
+            "host_ms_total": sum(host_ms),
+            "ms_a_frame": sum(host_ms) / frames,
+            "xRT": frames / 100.0 / (sum(host_ms) / 1e3)}
+
+
 def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
     """The grammar path on the slice's model directory (written under
     `tmp`, which outlives the CPU holds): per grammar, 16 utterances
-    through the Decoder, then the FSG stream of utterance 0."""
+    through the Decoder, then the FSG stream of utterance 0 (the counted
+    main path, graphed: the default); then the same 16 and the streams of
+    utterances 0 .. STREAM_UTTS-1 eager (`_graphs = False`) and graphed
+    again, in turns, every exit tape bit-equal."""
     out = {"phase": "grammar", "grammars": {}}
     launches = 0
     kw = fixture.write_model_dir(fx, os.path.join(tmp, "grammar"))
@@ -1825,6 +2075,7 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
     for i, c in enumerate(fx.ceps):
         mfcs.append(os.path.join(tmp, "grammar", f"u{i}.mfc"))
         write_mfc(mfcs[-1], c)
+    frames = sum(len(c) for c in fx.ceps)
     for key in GRAMMARS:
         g = {"hmm": kw["hmm"], "dict": kw["dict"],
              key: os.path.join(tmp, "grammar", "grammar." + key)}
@@ -1834,20 +2085,9 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
         search = dec.search
         # The main path, once, counted and timed.
         fused_mixture_scores.launches = 0
-        hyps, exits, host_ms, dev_ms = [], [], [], []
-        for p in mfcs:
-            torch.cuda.synchronize()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            ev0.record()
-            hyps.append(dec.decode_cep_file(p))
-            ev1.record()
-            torch.cuda.synchronize()
-            host_ms.append(1e3 * (time.perf_counter() - t0))
-            dev_ms.append(ev0.elapsed_time(ev1))
-            exits.append(search._last[:4])
+        main = grammar_pass(dec, search, mfcs)
         n = fused_mixture_scores.launches
+        hyps, exits = main["hyps"], main["exits"]
         lat = dec.get_lattice()
         best, nb = lat.bestpath(), lat.nbest(5)
         # The grammar stream: utterance 0 in 50-frame pushes, counted.
@@ -1874,18 +2114,36 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
                     torch.as_tensor(feats, device=dev)).cpu().numpy()
             holds.submit(f"grammar/{key}/search", hold_grammar_task, paths,
                          feats, scores, exits[i], segs(hyps[i]))
+        # Graphed against eager: the 16 utterances eager, then graphed
+        # again (warm); streams of STREAM_UTTS utterances in turns.
+        with frames_graphed(search, False):
+            eager = grammar_pass(dec, search, mfcs)
+        warm = grammar_pass(dec, search, mfcs)
+        streams = {"graphed": [], "eager": []}
+        for i in range(STREAM_UTTS):
+            f = dec.fp.compute(fx.ceps[i])
+            for m in ("graphed", "eager"):
+                with frames_graphed(search, m == "graphed"):
+                    streams[m].append(grammar_stream(search, f))
+        stream_frames = sum(len(fx.ceps[i]) for i in range(STREAM_UTTS))
+        both = {}
+        for m, p in (("graphed", warm), ("eager", eager)):
+            lat_ms = np.array([x for r in streams[m] for x in r["lat_ms"]])
+            both[m] = {**summary(p["host_ms"], p["dev_ms"], frames),
+                       "stream_push_partial_ms_p50":
+                           float(np.percentile(lat_ms, 50)),
+                       "stream_push_partial_ms_p99":
+                           float(np.percentile(lat_ms, 99)),
+                       "stream_xRT": stream_frames / 100.0
+                       / sum(r["wall_s"] for r in streams[m])}
         errs = sum(fixture.word_errors(r, h.words)
                    for r, h in zip(fx.transcripts, hyps))
-        frames = sum(len(c) for c in fx.ceps)
         r = {"links": search.n_link, "states": search.n_state,
              "channels": search.graph.n_chan,
              "rc_variants": search.graph.n_rcvar,
              "prune": search.prune, "init_s": init_s,
              "utterances": len(hyps), "k1_launches": n,
-             "ms_per_utt_host": statistics.median(host_ms),
-             "ms_per_utt_cuda_events": statistics.median(dev_ms),
-             "host_ms_total": sum(host_ms),
-             "xRT": frames / 100.0 / (sum(host_ms) / 1e3),
+             **summary(main["host_ms"], main["dev_ms"], frames),
              "word_errors": errs,
              "ref_words": sum(len(t) for t in fx.transcripts),
              "lattice_nodes_alive": int(lat.alive.sum()),
@@ -1894,11 +2152,30 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
              "cpu_hold_utterances": len(hyps),
              "stream_final_equal": segs(final) == segs(hyps[0]),
              "stream_partials": len(partials), "stream_chunks": chunks,
-             "stream_k1_launches": ns}
+             "stream_k1_launches": ns,
+             "block_frames": search.BLOCK,
+             "graphs_cached": len(search._runner.cache),
+             "graph_stats": dict(search._runner.stats),
+             "exits_bit_equal": all(
+                 equal_arrays(x, y) for p in (main, warm)
+                 for x, y in zip(p["exits"], eager["exits"])),
+             "segments_equal": all(
+                 [segs(h) for h in p["hyps"]] == [segs(h) for h in
+                                                   eager["hyps"]]
+                 for p in (main, warm)),
+             "stream_exits_bit_equal": all(
+                 equal_arrays(x["exits"], y["exits"])
+                 for x, y in zip(streams["graphed"], streams["eager"])),
+             "stream_finals_equal": all(
+                 (x["final"], x["partials"]) == (y["final"], y["partials"])
+                 for x, y in zip(streams["graphed"], streams["eager"])),
+             "graphed_warm": both["graphed"], "eager": both["eager"]}
         out["grammars"][key] = r
         if n != len(mfcs) or ns != chunks or \
                 not r["stream_final_equal"] or not nb or \
-                nb[0].words != best.words:
+                nb[0].words != best.words or not r["exits_bit_equal"] or \
+                not r["segments_equal"] or not r["stream_exits_bit_equal"] \
+                or not r["stream_finals_equal"] or r["graphs_cached"] != 1:
             emit(out)
             raise AssertionError(f"grammar {key}: {r}")
     out["k1_launches"] = launches
@@ -1906,19 +2183,47 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
     return out
 
 
+def equal_arrays(a, b) -> bool:
+    """Two lists of arrays equal bit for bit, type for type."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def align_pass(dec, fx, utts) -> list:
+    """Decoder.align of utterances `utts` with their transcripts: each
+    one's host ms and result."""
+    out = []
+    for i in utts:
+        feats = dec.fp.compute(fx.ceps[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = dec.align(feats, fx.transcripts[i])
+        torch.cuda.synchronize()
+        out.append((1e3 * (time.perf_counter() - t0), res))
+    return out
+
+
+def same_alignment(a, b) -> bool:
+    """Two alignments' states, phone segments and scores equal."""
+    return a[2] == b[2] and a[3] == b[3] and [
+        (p.phone, p.start_frame, p.end_frame) for p in a[1]] == [
+        (p.phone, p.start_frame, p.end_frame) for p in b[1]]
+
+
 def phase_align_allphone(dev, fx) -> dict:
+    """ALIGN_UTTS alignments through the Decoder (counted, graphed: the
+    default) held to the CPU's, then eager (`_graphs = False`) and
+    graphed again (warm), bit-equal; an -allphone decode against the
+    CPU's."""
     with tempfile.TemporaryDirectory() as tmp:
         kw = fixture.write_model_dir(fx, tmp)
         gpu, cpu = Decoder(device=dev, **kw), Decoder(device="cpu", **kw)
         fused_mixture_scores.launches = 0
+        main = align_pass(gpu, fx, range(ALIGN_UTTS))
+        launches = fused_mixture_scores.launches
         rows = []
-        for i in range(ALIGN_UTTS):
+        for i, (ms, (ws, ps, states, score)) in enumerate(main):
             feats = gpu.fp.compute(fx.ceps[i])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ws, ps, states, score = gpu.align(feats, fx.transcripts[i])
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0)
             wc, pc, sc, scc = cpu.align(feats, fx.transcripts[i])
             rows.append({"frames": len(states), "ms": ms,
                          "states_equal": states == sc,
@@ -1928,7 +2233,10 @@ def phase_align_allphone(dev, fx) -> dict:
                              for p in pc],
                          "words": [w.word for w in ws] == fx.transcripts[i],
                          "score_rel_diff": abs(score - scc) / abs(scc)})
-        launches = fused_mixture_scores.launches
+        aligner = gpu._aligner
+        with frames_graphed(aligner, False):
+            eager = align_pass(gpu, fx, range(ALIGN_UTTS))
+        warm = align_pass(gpu, fx, range(ALIGN_UTTS))
         ap = {"hmm": kw["hmm"], "allphone": "uniform", "lw": 3.0}
         ga, ca = Decoder(device=dev, **ap), Decoder(device="cpu", **ap)
         feats = ga.fp.compute(fx.ceps[0])
@@ -1938,13 +2246,26 @@ def phase_align_allphone(dev, fx) -> dict:
         allphone_s = time.perf_counter() - t0
         launches += fused_mixture_scores.launches
         hc = ca.search.decode(feats)
+    frames = sum(len(fx.ceps[i]) for i in range(ALIGN_UTTS))
     out = {"phase": "align_allphone", "align": rows, "k1_launches": launches,
+           "state_bucket": aligner.STATE_BUCKET,
+           "block_frames": aligner.BLOCK,
+           "graphs_cached": len(aligner._runner.cache),
+           "graph_stats": dict(aligner._runner.stats),
+           "bit_equal_to_eager": all(
+               same_alignment(x[1], y[1])
+               for p in (main, warm) for x, y in zip(p, eager)),
+           **{m: {"ms_per_utt": [x[0] for x in p],
+                  "ms_a_frame": sum(x[0] for x in p) / frames}
+              for m, p in (("graphed_cold", main), ("eager", eager),
+                           ("graphed_warm", warm))},
            "allphone_phones": len(h.words), "allphone_s": allphone_s,
            "allphone_equal_to_cpu": segs(h) == segs(hc)}
     emit(out)
     if any(not (r["states_equal"] and r["phones_equal"] and r["words"]
                 and r["score_rel_diff"] <= 1e-5) for r in rows) or \
-            not out["allphone_equal_to_cpu"] or launches != ALIGN_UTTS + 1:
+            not out["allphone_equal_to_cpu"] or \
+            not out["bit_equal_to_eager"] or launches != ALIGN_UTTS + 1:
         raise AssertionError(f"align_allphone: {out}")
     return out
 
@@ -3038,6 +3359,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     lat = phase_lattice(dev, search, fp, cont)
     del search, fp, tapes, hyps
     align = phase_align_allphone(dev, cont)
+    phase_graphs_search(dev, cont, tmp, card)
     semi = fixture.build(SEED, model="semi")
     semicont = phase_semicont_scorer(dev, semi)
     sharded = phase_senone_shards(dev, cont, semi)

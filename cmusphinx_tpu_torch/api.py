@@ -171,6 +171,7 @@ class Decoder:
 
         # Search module (ps_reinit search selection :257-280).
         self.search = None
+        self._aligner = None
         if str(cfg["allphone"]):
             # Phoneme decoding with a phone N-gram LM or a uniform one.
             spec = str(cfg["allphone"])
@@ -423,5 +424,12 @@ class Decoder:
             feats = self.fp.compute(cep)
         else:
             feats = np.asarray(feats_or_raw)
-        return AlignSearch(self.dict, self.mdef, self.tmat, self.scorer,
-                           device=self.device).align(feats, words)
+        # One aligner a Decoder, so that its captured graphs (one a state
+        # bucket) serve every call; built anew if a model part was replaced.
+        al = self._aligner
+        if al is None or any(a is not b for a, b in zip(
+                (al.dict, al.mdef, al.tmat, al.scorer),
+                (self.dict, self.mdef, self.tmat, self.scorer))):
+            al = self._aligner = AlignSearch(self.dict, self.mdef, self.tmat,
+                                             self.scorer, device=self.device)
+        return al.align(feats, words)

@@ -12,6 +12,16 @@ frame is one `[S, S]` step, `max` and a first-index argmax over the source
 state (`jnp.argmax`'s tie rule), then the host backtraces to state, phone
 and word segmentations.
 
+The frames run in blocks of `BLOCK` through the shared block runner
+(`graphs.BlockRunner`): on the card each block is a replay of a captured
+CUDA graph, the counterpart of the reference's compiled `lax.scan`.  A
+graph is keyed by its block length and the state count, which is rounded
+up to a multiple of `STATE_BUCKET`, so that a corpus of transcripts shares
+a handful of graphs (the reference compiles its scan anew for every
+`align` call).  The padded states come last and can be neither entered
+nor left (`NEG` entry, transitions, exits and scores), so no output
+changes: see `_pad_states`.
+
 Allphone decoding is the N-gram decoder over a phone dictionary (every CI
 phone a one-phone word), with a phone N-gram LM or a uniform unigram.
 """
@@ -29,6 +39,7 @@ from ..models.dict2pid import Dict2Pid
 from ..models.mdef import BAD_SENID, Mdef
 from ..models.ngram import NgramModel
 from ..models.tmat import TransitionMatrices
+from .graphs import BlockRunner, pad_frames
 from .ngram_search import _argmax_first
 from .results import Segment
 
@@ -45,7 +56,20 @@ class PhoneSeg:
 
 
 class AlignSearch:
-    """Forced aligner over a senone scorer."""
+    """Forced aligner over a senone scorer.  `_graphs = False`, a private
+    attribute for the tests and `chip_smoke.py`, runs the blocks eagerly
+    on the card."""
+
+    # Frames a block (one graph a state bucket whatever the length).
+    BLOCK = 50
+    # The sentence HMM's states are padded to a multiple of this.  A
+    # frame's `[S, S]` step is a handful of small kernels whose time at a
+    # few hundred states is their latency, not their work, so a coarse
+    # bucket keeps the graphs few at little cost: the hub4-class slice's 16
+    # transcripts (48-120 states) share one graph at 128 (two at 64, ten
+    # unpadded), and graphed they align no slower padded than unpadded
+    # (PERF.md §5).
+    STATE_BUCKET = 128
 
     def __init__(self, d: Dictionary, mdef: Mdef, tmat: TransitionMatrices,
                  scorer, *, device: torch.device | str = "cuda"):
@@ -55,6 +79,8 @@ class AlignSearch:
         self.scorer = scorer
         self.device = torch.device(device)
         self.d2p = Dict2Pid(mdef, d)
+        self._graphs = True
+        self._runner = BlockRunner()
 
     # ------------------------------------------------------------------
     def _build(self, words: Sequence[str], add_sil: bool = True):
@@ -126,27 +152,78 @@ class AlignSearch:
         return (state_sen, state_valid, state_phone, state_word,
                 M, entry_lp, fexit, tokens, n)
 
+    def _block(self, carry, inputs, t, rows) -> tuple:
+        """Frames of the state scores ll [K, Sp] (valid [K]) through the
+        `[Sp, Sp]` step, writing the backpointer rows [K, Sp]; a frame past
+        the utterance keeps alpha.  The transition matrix rides in the
+        carry (copied into a graph once a call).  No host read, so the
+        block can be captured."""
+        a, M = carry
+        ll, valid = inputs
+        bps, = rows
+        for k in range(ll.shape[0]):
+            cand = a[:, None] + M
+            bps[k].copy_(_argmax_first(cand, 0))
+            a = torch.where(valid[k], (cand.amax(0) + ll[k]).clamp_min(NEG),
+                            a)
+        return a, M
+
+    def _pad_states(self, state_sen, state_valid, M, entry_lp) -> tuple:
+        """The sentence HMM's arrays of S states padded to Sp, a multiple
+        of STATE_BUCKET, as tensors on the device: (senone [Sp] int64,
+        valid [Sp], transitions [Sp, Sp], entry [Sp]).
+
+        The padded states come last and get NEG entry, transitions to and
+        from them, and (invalid) scores.  A padded alpha is then NEG + NEG
+        at frame 0 and NEG after (the clamp), never more than a real
+        state's (at least NEG + NEG, then NEG), and its transitions are
+        NEG, never more than a real one's; f32 addition is monotone, so no
+        candidate from a padded source exceeds one from a real source.  A
+        real state's max is the unpadded one, and its first-index argmax,
+        on a tie, takes the real source of lower index.  `_viterbi` cuts
+        the final scores to S before the host's argmax.  No output
+        changes."""
+        S, B = len(state_sen), self.STATE_BUCKET
+        Sp = -(-S // B) * B
+        sen = np.zeros(Sp, np.int64)
+        sen[:S] = state_sen
+        ok = np.zeros(Sp, bool)
+        ok[:S] = state_valid
+        Mp = np.full((Sp, Sp), NEG, np.float32)
+        Mp[:S, :S] = M
+        ent = np.full(Sp, NEG, np.float32)
+        ent[:S] = entry_lp
+        return tuple(torch.as_tensor(x, device=self.device)
+                     for x in (sen, ok, Mp, ent))
+
+    def _scan(self, scores, sen, ok, M, ent) -> tuple:
+        """The Viterbi over the senone scores [T, n_sen] on the (padded)
+        sentence HMM (`_pad_states`): (alpha [Sp] at frame T-1,
+        backpointers [F, Sp] of frames 1 .. T-1, rows past T-1 padding)
+        on the device.  No host read: on the card each block is a graph's
+        replay."""
+        ll = torch.where(ok[None, :], scores[:, sen], NEG)       # [T, Sp]
+        a = ent + ll[0]
+        n, Sp = ll.shape[0] - 1, ll.shape[1]
+        F = -(-n // self.BLOCK) * self.BLOCK
+        ll = pad_frames(ll[1:], F)
+        valid = torch.arange(F, device=ll.device) < n
+        bps = torch.empty((F, Sp), dtype=torch.int64, device=ll.device)
+        a, _ = self._runner.scan(self._block, (a, M), (ll, valid), (bps,),
+                                 1, self.BLOCK, self._graphs and ll.is_cuda,
+                                 row0=0)
+        return a, bps
+
     @torch.inference_mode()
     def _viterbi(self, feats, state_sen, state_valid, M, entry_lp, fexit):
         """The dense Viterbi on the device: (final scores [S], backpointers
         [T-1, S]) on the host."""
-        dev = self.device
-        x = torch.as_tensor(np.asarray(feats, np.float32)).to(dev)
-        scores = self.scorer.score(x)                            # [T, n_sen]
-        sen = torch.as_tensor(state_sen.astype(np.int64), device=dev)
-        ok = torch.as_tensor(state_valid, device=dev)
-        ll = torch.where(ok[None, :], scores[:, sen], NEG)       # [T, S]
-        Md = torch.as_tensor(M, device=dev)
-        a = torch.as_tensor(entry_lp, device=dev) + ll[0]
-        T = ll.shape[0]
-        bps = torch.empty((max(T - 1, 0), Md.shape[0]), dtype=torch.int64,
-                          device=dev)
-        for t in range(1, T):
-            cand = a[:, None] + Md
-            bps[t - 1] = _argmax_first(cand, 0)
-            a = (cand.amax(0) + ll[t]).clamp_min(NEG)
-        fin = a + torch.as_tensor(fexit, device=dev)
-        return fin.cpu().numpy(), bps.cpu().numpy()
+        x = torch.as_tensor(np.asarray(feats, np.float32)).to(self.device)
+        S, n = len(state_sen), x.shape[0] - 1
+        a, bps = self._scan(self.scorer.score(x), *self._pad_states(
+            state_sen, state_valid, M, entry_lp))
+        fin = a[:S] + torch.as_tensor(fexit, device=self.device)
+        return fin.cpu().numpy(), bps[:n, :S].cpu().numpy()
 
     # ------------------------------------------------------------------
     def align(self, feats: np.ndarray, words: Sequence[str]) -> tuple:

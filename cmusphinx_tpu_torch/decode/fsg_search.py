@@ -18,11 +18,18 @@ cross-word triphone channels (`lexgraph.py`), and a frame is:
 
 What differs in form, not in result:
 
-- The frame scan is a Python loop over frames of tensor ops on the
-  search's device; a pass decodes one utterance, as in the reference.
-- Only the utterance's real frames are scored and stepped: the
-  reference's padded frames leave the carry as it was and are cut from its
-  outputs.
+- The frame scan runs in blocks of `BLOCK` frames through the shared
+  block runner (`graphs.BlockRunner`), the frame index a 0-d tensor on
+  the device; on the card each block is a replay of a captured CUDA
+  graph, the counterpart of the reference's compiled `lax.scan`.  The
+  carry `[C, S]` is fixed per search, so one graph serves the batch
+  decode and the stream at every utterance length.  A pass decodes one
+  utterance, as in the reference.
+- The batch decode pads the senone scores, not the features, to the
+  reference's 100-frame bucket (the scorer sees the real frames only);
+  the stream's last chunk is padded to `CHUNK` the same way.  Padded
+  frames leave the carry as it was and are cut from the outputs, as in
+  the reference.
 - Argmaxes take the first index on ties explicitly (`_argmax_first`), as
   `jnp.argmax` does.
 - Results are the port's `decode/results.py` dataclasses.
@@ -48,6 +55,7 @@ from ..models.mdef import Mdef
 from ..models.tmat import TransitionMatrices
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from ..utils.config import Arg, Config
+from .graphs import BlockRunner, pad_frames
 from .lexgraph import build_word_graph
 from .ngram_search import NgramSearch, _argmax_first
 from .results import Hypothesis, Segment
@@ -65,9 +73,18 @@ FSG_ARGS = [
 
 class FsgSearch(nn.Module):
     """Grammar decoder over a senone scorer; its tables are buffers on
-    `device`."""
+    `device`.
+
+    On the card the frame loop runs through captured CUDA graphs of a
+    block of frames.  `_graphs = False`, a private attribute for the tests
+    and `chip_smoke.py`, runs the same blocks eagerly there, to compare
+    the two."""
 
     CHUNK = 50
+    FRAME_BUCKET = 100
+    # Frames a block: a divisor of FRAME_BUCKET and CHUNK, so that a batch
+    # decode and a stream chunk are whole blocks of one graph.
+    BLOCK = 50
 
     def __init__(self, fsg: FsgModel, d: Dictionary, mdef: Mdef,
                  tmat: TransitionMatrices, scorer,
@@ -171,6 +188,8 @@ class FsgSearch(nn.Module):
                            hmm_bands(tmat.log_tp[g.tmat_idx])):
             buf("_band_" + name, b, torch.float32)
         self._last = None
+        self._graphs = True
+        self._runner = BlockRunner()
 
     # The graph's tables are the N-gram search's: the same buffers, the
     # same readers.
@@ -194,10 +213,13 @@ class FsgSearch(nn.Module):
              self._entxs0))
         return alpha, hist, xsr
 
-    def _step(self, carry, sen_t: torch.Tensor, t: int, out) -> tuple:
-        """Frame t: advance the carry and write the frame's rows of `out`
-        (wex, wexh, wexsil [n, K]; exv [n, K, Vr]) at row t - out's first
-        frame (`out[4]`)."""
+    def _step(self, carry, sen_t: torch.Tensor, t: torch.Tensor,
+              valid_t: torch.Tensor, rows) -> tuple:
+        """Frame t (a 0-d int64 tensor): advance the carry and write the
+        frame's exits into `rows` (views wex, wexh, wexsil [K]; exv [K,
+        Vr]).  A frame past the utterance (`valid_t` false) keeps the
+        carry and reads NEG_INF exits, as the reference's `valid` mask
+        does (which leaves wexh as it is)."""
         alpha0, hist0, xsr0 = carry
         K = self.n_link
         neg = NEG_INF
@@ -233,33 +255,57 @@ class FsgSearch(nn.Module):
             (torch.where(ie, ebp[wo], bprop),
              torch.where(ie, ent_xs_c, self._static_xs)))
 
-        wex_o, wexh_o, wexsil_o, exv_o, t0 = out
-        r = t - t0
-        wex_o[r] = wex
-        wexh_o[r] = wexh
-        wexsil_o[r] = exv.gather(1, self._rssid_sil[:, None])[:, 0]
-        exv_o[r] = exv
-        return alpha, hist, xsr
+        wexsil = exv.gather(1, self._rssid_sil[:, None])[:, 0]
+        for r, v in zip(rows, (torch.where(valid_t, wex, neg), wexh,
+                               torch.where(valid_t, wexsil, neg),
+                               torch.where(valid_t, exv, neg))):
+            r.copy_(v)
+        return (torch.where(valid_t, alpha, alpha0),
+                torch.where(valid_t, hist, hist0),
+                torch.where(valid_t, xsr, xsr0))
 
-    def _run(self, carry, feats: torch.Tensor, t0: int):
-        """Score frames t0 .. t0+n-1 of `feats` [n, D] and step them;
-        returns (carry, host outputs wex, wexh, wexsil [n, K], exv [n, K,
-        Vr])."""
-        n = feats.shape[0]
+    def _block(self, carry, inputs, t: torch.Tensor, rows) -> tuple:
+        """Frames t .. t+K-1 of the senone scores [K, n_sen] (valid [K]),
+        writing row k of each of the block's tape `rows` for frame t+k;
+        nothing here reads a device value on the host, so the block can
+        be captured (`graphs.BlockRunner`)."""
+        scores, valid = inputs
+        for k in range(scores.shape[0]):
+            carry = self._step(carry, scores[k], t, valid[k],
+                               tuple(r[k] for r in rows))
+            t = t + 1
+        return carry
+
+    def _scan(self, carry, scores: torch.Tensor, t0: int, T: int):
+        """Step frames t0 .. t0+n-1 of the senone scores [n, n_sen], the
+        first T of them real, block by block; returns (carry, the exit
+        tapes wex, wexh, wexsil [n, K], exv [n, K, Vr] on the device).  No
+        host read: on the card each block is a graph's replay."""
+        n = scores.shape[0]
         K, Vr = self.n_link, self.graph.n_rcvar
         dev = self.device
-        scores = self.scorer.score(feats)                        # [n, n_sen]
-        out = (torch.empty((n, K), dtype=torch.float32, device=dev),
-               torch.empty((n, K), dtype=torch.int64, device=dev),
-               torch.empty((n, K), dtype=torch.float32, device=dev),
-               torch.empty((n, K, Vr), dtype=torch.float32, device=dev), t0)
-        for k in range(n):
-            carry = self._step(carry, scores[k], t0 + k, out)
-        wex, wexh, wexsil, exv = (a.cpu().numpy() for a in out[:4])
+        valid = torch.arange(n, device=dev) < T
+        tape = (torch.empty((n, K), dtype=torch.float32, device=dev),
+                torch.empty((n, K), dtype=torch.int64, device=dev),
+                torch.empty((n, K), dtype=torch.float32, device=dev),
+                torch.empty((n, K, Vr), dtype=torch.float32, device=dev))
+        carry = self._runner.scan(self._block, carry, (scores, valid), tape,
+                                  t0, self.BLOCK,
+                                  self._graphs and scores.is_cuda, row0=0)
+        return carry, tape
+
+    def _run(self, carry, scores: torch.Tensor, t0: int, T: int):
+        """`_scan`, then the real frames' exits on the host: (carry, wex,
+        wexh, wexsil [T, K], exv [T, K, Vr])."""
+        carry, tape = self._scan(carry, scores, t0, T)
+        wex, wexh, wexsil, exv = (a[:T].cpu().numpy() for a in tape)
         return carry, (wex, wexh.astype(np.int32), wexsil, exv)
 
-    def _feats(self, feats) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(feats, np.float32)).to(self.device)
+    def _scores(self, feats, n: int) -> torch.Tensor:
+        """The senone scores of feats [T, D], padded with zero rows to n
+        frames: the scorer runs on the T real frames only."""
+        x = torch.as_tensor(np.asarray(feats, np.float32)).to(self.device)
+        return pad_frames(self.scorer.score(x), n)
 
     @torch.inference_mode()
     def decode(self, feats) -> Hypothesis:
@@ -267,8 +313,9 @@ class FsgSearch(nn.Module):
         T = int(feats.shape[0])
         if T == 0:
             return Hypothesis([], float("-inf"), [])
-        _, (wex, wexh, wexsil, exv) = self._run(self._init_carry(),
-                                                self._feats(feats), 0)
+        Tpad = -(-T // self.FRAME_BUCKET) * self.FRAME_BUCKET
+        _, (wex, wexh, wexsil, exv) = self._run(
+            self._init_carry(), self._scores(feats, Tpad), 0, T)
         self._last = (wex, wexh, wexsil, exv, T)
         return self._backtrace_at(wex, wexh, wexsil, T)
 
@@ -288,11 +335,14 @@ class FsgSearch(nn.Module):
                 "pending": np.zeros((0, 0), np.float32)}
 
     def _stream_chunk(self, state: dict, block: np.ndarray) -> None:
-        state["carry"], outs = self._run(state["carry"], self._feats(block),
-                                         state["t"])
+        """One chunk of at most CHUNK frames, padded to CHUNK (one graph
+        for every chunk, the last one too)."""
+        take = block.shape[0]
+        state["carry"], outs = self._run(
+            state["carry"], self._scores(block, self.CHUNK), state["t"], take)
         for key, a in zip(("wex", "wexh", "wexsil", "exv"), outs):
             state[key].append(a)
-        state["t"] += block.shape[0]
+        state["t"] += take
 
     @torch.inference_mode()
     def stream_push(self, state: dict, feats: np.ndarray) -> dict:
@@ -310,6 +360,8 @@ class FsgSearch(nn.Module):
         return state
 
     def _stream_flush(self, state: dict) -> int:
+        """Decode the buffered remainder as a last chunk, its padding
+        masked (the reference's flush); returns the frames decoded."""
         pend = state["pending"]
         if pend.shape[0]:
             self._stream_chunk(state, pend)

@@ -47,8 +47,8 @@ What differs in form, not in result:
 - The frame scan runs in blocks of frames (`_block`: the static and
   tree steps' senone expansion, then a frame step per frame, the frame
   index a 0-d tensor advanced on the device).  On the card each block is
-  a captured CUDA graph (`_BlockGraph`), captured once per shape and
-  replayed block after block: the counterpart of the reference's
+  a captured CUDA graph (`graphs.BlockRunner`), captured once per shape
+  and replayed block after block: the counterpart of the reference's
   `jit`-compiled `lax.scan`.  On the CPU the same block runs eagerly.
 - Gathers are plain gathers; the reference's one-hot matmul gathers, its
   flat state-major layout and its 128-lane root padding were TPU devices.
@@ -73,8 +73,6 @@ workaround for TPU compiler crashes.
 from __future__ import annotations
 
 import math
-import time
-from collections import Counter, OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -91,6 +89,7 @@ from ..models.tmat import TransitionMatrices
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from ..utils import native
 from ..utils.config import Arg, Config
+from .graphs import GRAPH_CACHE, BlockRunner  # noqa: F401 (read by tests)
 from .lattice import LatNode, Lattice
 from .lexgraph import build_word_graph
 from .results import Hypothesis, Segment
@@ -150,15 +149,6 @@ NGRAM_ARGS = [
 # (ROADMAP A-x); the expansion is elementwise, so the block changes no
 # result.
 EXPAND_BLOCK_BYTES = 192 << 20
-
-# Captured blocks a search keeps (least recently used dropped first).  A
-# graph's key is its batch size and block length, and for the static and
-# tree steps its side-tables' frames (`_side_frames`; a stream's tape
-# size): one graph a batch size (mpx), or one a batch size and power of
-# two of FRAME_BUCKET, and one for a search's streams.  16 holds a search
-# serving three batch sizes at five side-table sizes and a stream; a
-# 20,000-word tree graph holds ~80 MB of the card (PERF.md §5).
-GRAPH_CACHE = 16
 
 
 def _f32(x: float) -> float:
@@ -239,61 +229,6 @@ class NgramVocab:
         self.n_word = len(words)
 
 
-class _BlockGraph:
-    """One block of frames (`NgramSearch._block`) captured as a CUDA graph,
-    with the static buffers it reads and writes, all its own: the carry,
-    the block's inputs (scores, valid, lookahead), the first frame index
-    `t` and the block's K tape rows.  Its intermediates live in the
-    search's shared graph pool.  `calls` is what one block adds to
-    `DeviceNgram.calls` (a host counter the replay does not run),
-    recorded at capture."""
-
-    def __init__(self, search: "NgramSearch", carry, blk, t0: int, tape):
-        self.carry = tuple(c.clone() for c in carry)
-        self.scores, self.valid, self.la = (
-            None if x is None else x.clone() for x in blk)
-        dev = self.scores.device
-        self.t = torch.full((), t0, dtype=torch.int64, device=dev)
-        K = self.scores.shape[1]
-        self.tape = tuple(a.new_empty((a.shape[0], K) + a.shape[2:])
-                          for a in tape)
-        calls = search.dlm.calls
-        before = Counter(calls)
-        # Warm up once on a side stream (torch.cuda.graph's rule), on the
-        # caller's values: the warm-up runs the kernels for real.
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run(search)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warm = Counter(calls)
-        # A host read inside the block fails the capture, and the error
-        # propagates: there is no eager fallback.  Thread-local capture
-        # lets other threads (NCCL's watchdog) query the card meanwhile.
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=search._graph_pool,
-                              capture_error_mode="thread_local"):
-            self._run(search)
-        self.calls = calls - warm
-        calls.clear()
-        calls.update(before)
-
-    def _run(self, search: "NgramSearch") -> None:
-        out = search._block(self.carry, self.scores, self.t, self.valid,
-                            self.tape, self.la)
-        for a, b in zip(self.carry, out):
-            if b is not a:
-                a.copy_(b)
-
-    def replay(self, search: "NgramSearch", blk, t0: int) -> None:
-        for dst, src in zip((self.scores, self.valid, self.la), blk):
-            if src is not None:
-                dst.copy_(src)
-        self.t.fill_(t0)
-        self.graph.replay()
-        search.dlm.calls.update(self.calls)
-
-
 class NgramSearch(nn.Module):
     """Trigram decoder over a senone scorer.  The graph's tables, the
     transition matrices and the LM tables are buffers on `device`.
@@ -370,9 +305,7 @@ class NgramSearch(nn.Module):
         self.E = min(self.E, v.n_word)
         self.dlm = DeviceNgram(lm, device=self.device)
         self._graphs = True
-        self._graph_cache: OrderedDict = OrderedDict()
-        self._graph_pool = None
-        self._graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        self._runner = BlockRunner(axis=1, counters=(self.dlm.calls,))
         self.start_lmwid = lm.word_id("<s>")
         self.finish_lmwid = lm.word_id("</s>")
         self.sil_ci = mdef.sil if mdef.sil >= 0 else 0
@@ -1111,74 +1044,25 @@ class NgramSearch(nn.Module):
         [B, n]; the phone-loop lookahead la [B, n, n_ci] or None) block by
         block (`_block_len`); writes their rows t0 .. t0+n-1 of the tape
         and returns the carry.  On the card each block is a replay of a
-        captured graph (`_scan_graphed`)."""
+        captured graph (`graphs.BlockRunner`), keyed by batch and block
+        length, and for the static and tree steps the side-tables' size;
+        a last block shorter than `_block_len` (only where the caller
+        chose the block length) replays a graph of its own length."""
         B, n = scores.shape[0], scores.shape[1]
-        if self._graphs and scores.is_cuda:
-            return self._scan_graphed(carry, scores, t0, valid, tape, la)
-        K = self._block_len(B, n)
-        for k0 in range(0, n, K):
-            sl = slice(k0, k0 + K)
-            t = torch.full((), t0 + k0, dtype=torch.int64,
-                           device=scores.device)
-            carry = self._block(carry, scores[:, sl], t, valid[:, sl],
-                                tuple(a[:, t0 + k0: t0 + k0 + K]
-                                      for a in tape),
-                                None if la is None else la[:, sl])
-        return carry
+        return self._runner.scan(
+            self._run_block, carry, (scores, valid, la), tape, t0,
+            self._block_len(B, n), self._graphs and scores.is_cuda)
 
-    def _scan_graphed(self, carry, scores, t0: int, valid, tape, la):
-        """`_scan` through captured blocks.  The carry goes into the
-        block's graph once, stays in its buffers from replay to replay,
-        and comes out as a copy; after each replay the graph's K tape rows
-        are copied into the caller's tape.  Neither the returned carry nor
-        the tape shares memory with the graph, so decodes and interleaved
-        streams do not disturb one another.  A last block shorter than
-        `_block_len` (only where the caller chose the block length) replays
-        a graph of its own length."""
-        B, n = scores.shape[0], scores.shape[1]
-        K = self._block_len(B, n)
-        cur = None
-        with torch.cuda.device(scores.device), torch.inference_mode():
-            for k0 in range(0, n, K):
-                sl = slice(k0, k0 + K)
-                blk = (scores[:, sl], valid[:, sl],
-                       None if la is None else la[:, sl])
-                g = self._block_graph(carry, blk, t0 + k0, tape)
-                if g is not cur:
-                    if cur is not None:
-                        carry = cur.carry
-                    for a, b in zip(g.carry, carry):
-                        a.copy_(b)
-                    cur = g
-                g.replay(self, blk, t0 + k0)
-                self._graph_stats["replays"] += 1
-                rows = slice(t0 + k0, t0 + k0 + blk[0].shape[1])
-                for a, b in zip(tape, g.tape):
-                    a[:, rows].copy_(b)
-            return tuple(c.clone() for c in cur.carry)
+    def _run_block(self, carry, inputs, t, rows):
+        """`_block` as the runner calls it."""
+        scores, valid, la = inputs
+        return self._block(carry, scores, t, valid, rows, la)
 
-    def _block_graph(self, carry, blk, t0: int, tape) -> _BlockGraph:
-        """The captured block for these shapes (the carry's, so the
-        side-tables' sizes; the block inputs', so batch and block length;
-        a tape row's), captured now on these values if the cache has
-        none.  The search's graphs share one memory pool: they replay one
-        at a time, and each keeps what outlives a replay in buffers of its
-        own."""
-        key = tuple(None if x is None else (tuple(x.shape), x.dtype)
-                    for x in (*carry, *blk)) + tuple(
-            (tuple(a.shape[2:]), a.dtype) for a in tape)
-        g = self._graph_cache.pop(key, None)
-        if g is None:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            t_start = time.perf_counter()
-            g = _BlockGraph(self, carry, blk, t0, tape)
-            self._graph_stats["captures"] += 1
-            self._graph_stats["capture_s"] += time.perf_counter() - t_start
-            while len(self._graph_cache) >= GRAPH_CACHE:
-                self._graph_cache.popitem(last=False)
-        self._graph_cache[key] = g
-        return g
+    # The runner's graph cache, pool and counters (captures, capture_s,
+    # replays), under the names the tests and chip_smoke.py read.
+    _graph_cache = property(lambda self: self._runner.cache)
+    _graph_pool = property(lambda self: self._runner.pool)
+    _graph_stats = property(lambda self: self._runner.stats)
 
     def _tape(self, B: int, frames: int, fill: bool = False) -> tuple:
         """Tape arrays (tw, tsc, tprev, th2, th1 [B, frames, E]; trc [B,

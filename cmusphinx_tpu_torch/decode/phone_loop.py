@@ -14,7 +14,12 @@ every phone.
 - `lookahead_mask(feats, window, pl_beam)` -> [T, n_ci] bool: phones whose
   windowed score is within pl_beam of the frame best.
 
-The frame loop is a Python loop of tensor ops on the scorer's device.
+The frame loop runs in blocks of `BLOCK` frames through the shared block
+runner (`graphs.BlockRunner`): on the card each block is a replay of a
+captured CUDA graph, the counterpart of the reference's compiled
+`lax.scan`.  The scores are padded to whole blocks; a padded frame keeps
+the loop's state, and its rows are cut from the outputs, so the first T
+rows are the reference's T-frame scan.
 """
 
 from __future__ import annotations
@@ -27,11 +32,16 @@ import torch
 from ..models.mdef import Mdef
 from ..models.tmat import TransitionMatrices
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
+from .graphs import BlockRunner, pad_frames
 
 
 class PhoneLoopSearch:
     """Batched CI-phone loop over a senone scorer; its tables live on
-    `device`."""
+    `device`.  `_graphs = False`, a private attribute for the tests and
+    `chip_smoke.py`, runs the blocks eagerly on the card."""
+
+    # Frames a block (one graph whatever the utterance's length).
+    BLOCK = 50
 
     def __init__(self, mdef: Mdef, tmat: TransitionMatrices, scorer,
                  pip: float = 1.0, pl_weight: float = 3.0, *,
@@ -51,32 +61,58 @@ class PhoneLoopSearch:
                                             device=self.device)
                             for b in hmm_bands(tmat.log_tp[tm]))
         self._n_state = sen.shape[1]
+        self._lp = float(np.float32(self.log_pip))
+        self._graphs = True
+        self._runner = BlockRunner()
+
+    def _block(self, carry, inputs, t, rows) -> tuple:
+        """Frames of the senone scores [K, n_sen] (valid [K]) through the
+        loop, writing rows k of best [K] and phones [K, n_ci]; no host
+        read, so the block can be captured."""
+        alpha, = carry
+        scores, valid = inputs
+        best, phones = rows
+        n = self.n_ci
+        for k in range(scores.shape[0]):
+            sen_c = scores[k][self._sen_idx]                     # [n_ci, S]
+            a, _, ex, _ = hmm_step(alpha, (), sen_c, self._bands)
+            # The loop: the best exit re-enters every phone.
+            best_exit = ex.amax() + self._lp
+            a, _ = hmm_enter(a, (), best_exit.expand(n), ())
+            phone_best = a.amax(1)
+            # Renormalize against drift on long utterances.
+            m = phone_best.amax()
+            best[k].copy_(m)
+            phones[k].copy_(phone_best - m)
+            alpha = torch.where(valid[k], a - m, alpha)
+        return (alpha,)
+
+    def _scan(self, scores: torch.Tensor):
+        """The loop over the senone scores [T, n_sen], padded to whole
+        blocks: (best [F], phones [F, n_ci]) on the device, rows past T
+        padding.  No host read: on the card each block is a graph's
+        replay."""
+        n, S, T = self.n_ci, self._n_state, scores.shape[0]
+        dev = scores.device
+        F = -(-T // self.BLOCK) * self.BLOCK
+        scores = pad_frames(scores, F)
+        alpha = torch.full((n, S), NEG_INF, dtype=torch.float32, device=dev)
+        alpha[:, 0] = 0.0                  # every phone enterable at t = 0
+        valid = torch.arange(F, device=dev) < T
+        best = torch.empty(F, dtype=torch.float32, device=dev)
+        phones = torch.empty((F, n), dtype=torch.float32, device=dev)
+        self._runner.scan(self._block, (alpha,), (scores, valid),
+                          (best, phones), 0, self.BLOCK,
+                          self._graphs and scores.is_cuda)
+        return best, phones
 
     @torch.inference_mode()
     def _run(self, feats):
         """feats [T, D] -> (best [T], phone [T, n_ci]) on the host."""
         x = torch.as_tensor(np.asarray(feats, np.float32)).to(self.device)
-        scores = self.scorer.score(x)                            # [T, n_sen]
-        n, S, T = self.n_ci, self._n_state, x.shape[0]
-        alpha = torch.full((n, S), NEG_INF, dtype=torch.float32,
-                           device=self.device)
-        alpha[:, 0] = 0.0                  # every phone enterable at t = 0
-        lp = float(np.float32(self.log_pip))
-        best = torch.empty(T, dtype=torch.float32, device=self.device)
-        phones = torch.empty((T, n), dtype=torch.float32, device=self.device)
-        for t in range(T):
-            sen_c = scores[t][self._sen_idx]                     # [n_ci, S]
-            alpha, _, ex, _ = hmm_step(alpha, (), sen_c, self._bands)
-            # The loop: the best exit re-enters every phone.
-            best_exit = ex.amax() + lp
-            alpha, _ = hmm_enter(alpha, (), best_exit.expand(n), ())
-            phone_best = alpha.amax(1)
-            # Renormalize against drift on long utterances.
-            m = phone_best.amax()
-            alpha = alpha - m
-            best[t] = m
-            phones[t] = phone_best - m
-        return best.cpu().numpy(), phones.cpu().numpy()
+        T = x.shape[0]
+        best, phones = self._scan(self.scorer.score(x))
+        return best[:T].cpu().numpy(), phones[:T].cpu().numpy()
 
     def phone_scores(self, feats) -> np.ndarray:
         """[T, D] feats -> frame-relative per-phone scores [T, n_ci]."""

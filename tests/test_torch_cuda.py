@@ -2,8 +2,10 @@
 one-utterance decode through it, the other scorers, the frontend, the
 Decoder, the LM backends, the large-vocabulary searches, the streaming
 decode and the lattice results on the card against their CPU runs, K1 on
-senone shards against the unsharded call, and `tools fe` on the card
-against `-platform cpu`.  Skips where there is no CUDA device.
+senone shards against the unsharded call, `tools fe` on the card
+against `-platform cpu`, and every search's frame loop through captured
+CUDA graphs against its eager blocks (bit-equal).  Skips where there is
+no CUDA device.
 
 Tolerances against the CPU run: `PsParityScorer`'s epilogue bit-exact on
 the same int32 densities, and the whole scorer bit-exact on an
@@ -1095,5 +1097,273 @@ def test_graph_capture_with_a_host_read_raises(cuda, tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE], cwd=root,
                        capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "raised:" in r.stdout and "cached: 0" in r.stdout
+
+
+# ---- the grammar, phone-loop and alignment frame loops as CUDA graphs ------
+
+def _grammar_search(cuda, fx, kind, **kw):
+    """An FsgSearch on the card over the fixture's grammar (`kind`: jsgf or
+    fsg), scoring with K1."""
+    import io
+    from cmusphinx_tpu_torch.decode.fsg_search import FsgSearch
+    from cmusphinx_tpu_torch.models.fsg import FsgModel
+    from cmusphinx_tpu_torch.models.jsgf import JsgfGrammar
+    if kind == "jsgf":
+        g = JsgfGrammar.parse(fixture.grammar_jsgf(fx)).build_fsg()
+    else:
+        buf = io.StringIO()
+        fixture.grammar_fsg(fx).write(buf)
+        g = FsgModel.read_fp(io.StringIO(buf.getvalue()))
+    return FsgSearch(g, fx.dict, fx.mdef, fx.tmat,
+                     ContinuousScorer(fx.gauden, fx.ln_mixw, device=cuda),
+                     device=cuda, **kw)
+
+
+def _both(s, fn):
+    """fn() with the search's frame loop graphed, then eager
+    (`_graphs = False`)."""
+    out = []
+    for graphs in (True, False):
+        s._graphs = graphs
+        try:
+            out.append(fn())
+        finally:
+            s._graphs = True
+        torch.cuda.synchronize()
+    return out
+
+
+def _fsg_decode(s, feats):
+    h = s.decode(feats)
+    return _segs(h), [np.copy(a) for a in s._last[:4]]
+
+
+def _fsg_stream(s, feats, push=37):
+    st = s.stream_start()
+    partials = []
+    for i in range(0, len(feats), push):
+        s.stream_push(st, feats[i: i + push])
+        partials.append(_segs(s.stream_partial(st)))
+    final = _segs(s.stream_end(st))
+    return partials, final, [np.copy(a) for a in s._last[:4]]
+
+
+def _segs(h):
+    return (h.words, h.score, [(x.word, x.start_frame, x.end_frame)
+                               for x in h.segments])
+
+
+def _equal_arrays(a, b):
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kind,prune", [("jsgf", False), ("jsgf", True),
+                                        ("fsg", False), ("fsg", True)])
+def test_graphed_grammar_bit_equal_to_eager(cuda, kind, prune):
+    """Each utterance's batch decode and its stream (37-frame pushes, a
+    partial after each) through captured graphs against the eager blocks:
+    exit tapes bit-equal, hypotheses, scores and partials equal.  The
+    batch (100-frame bucket) and the stream (50-frame chunks) share one
+    graph: the block length is all its key holds."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    s = _grammar_search(cuda, fx, kind, prune=prune)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    for c, words in zip(fx.ceps, fx.transcripts):
+        feats = fp.compute(c)
+        (gh, gx), (eh, ex) = _both(s, lambda: _fsg_decode(s, feats))
+        assert gh == eh and gh[0] == words and _equal_arrays(gx, ex)
+        (gp, gf, gt), (ep, ef, et) = _both(s, lambda: _fsg_stream(s, feats))
+        assert gp == ep and gf == ef and _equal_arrays(gt, et)
+    assert s._runner.stats["captures"] == len(s._runner.cache) == 1
+    assert s._runner.stats["replays"] > 0
+
+
+def test_graphed_grammar_lengths_share_one_graph(cuda):
+    """Nine utterance lengths (one in each 100-frame bucket) decoded one at
+    a time replay one graph; each decode bit-equal to the eager blocks."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    s = _grammar_search(cuda, fx, "jsgf", prune=True)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    pool = np.concatenate(fx.ceps * (-(-900 // sum(map(len, fx.ceps))) + 1))
+    for b in range(9):
+        feats = fp.compute(pool[7 * b: 100 * b + 50 + 7 * b])
+        (gh, gx), (eh, ex) = _both(s, lambda: _fsg_decode(s, feats))
+        assert gh == eh and _equal_arrays(gx, ex)
+        assert gx[0].shape[0] == len(feats)
+    assert s._runner.stats["captures"] == len(s._runner.cache) == 1
+
+
+def test_graphed_grammar_streams_interleaved(cuda):
+    """Two grammar streams in flight on one search, pushed in turn, each
+    equal (exit tapes bit-equal, final hypotheses) to its run alone."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    s = _grammar_search(cuda, fx, "fsg")
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    feats = [fp.compute(fx.ceps[i]) for i in (0, 2)]
+    alone = [_fsg_stream(s, f) for f in feats]
+    sts = [s.stream_start() for _ in feats]
+    for i in range(0, max(len(f) for f in feats), 37):
+        for st, f in zip(sts, feats):
+            s.stream_push(st, f[i: i + 37])
+    for st, (_, final, tape) in zip(sts, alone):
+        assert _segs(s.stream_end(st)) == final
+        assert _equal_arrays([np.copy(a) for a in s._last[:4]], tape)
+
+
+def test_graphed_phone_loop_and_alignment_bit_equal_to_eager(cuda):
+    """The phone loop's rows and each alignment (states, segments, score)
+    through captured graphs against the eager blocks, bit-equal; the
+    phone loop takes one graph, the aligner one a state bucket."""
+    from cmusphinx_tpu_torch.decode.align import AlignSearch
+    from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
+    fx = fixture.build(0, size=fixture.SMALL)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    sc = ContinuousScorer(fx.gauden, fx.ln_mixw, device=cuda)
+    loop = PhoneLoopSearch(fx.mdef, fx.tmat, sc, device=cuda)
+    al = AlignSearch(fx.dict, fx.mdef, fx.tmat, sc, device=cuda)
+    buckets = set()
+    for c, words in zip(fx.ceps, fx.transcripts):
+        feats = fp.compute(c)
+        g, e = _both(loop, lambda: loop._run(feats))
+        assert _equal_arrays(g, e) and g[0].shape == (len(feats),)
+        for w in (words, words + words):
+            g, e = _both(al, lambda: al.align(feats, w))
+            assert g[2] == e[2] and g[3] == e[3]
+            assert [(p.phone, p.start_frame, p.end_frame) for p in g[1]] \
+                == [(p.phone, p.start_frame, p.end_frame) for p in e[1]]
+            buckets.add(-(-len(al._build(w)[0]) // al.STATE_BUCKET))
+    assert loop._runner.stats["captures"] == 1
+    assert al._runner.stats["captures"] == len(buckets)
+
+
+def test_graphed_alignment_buckets_share_graphs(cuda, tmp_path):
+    """A corpus of transcripts of several lengths through one Decoder's
+    `align`: one graph a state bucket (the Decoder keeps its aligner), each
+    alignment bit-equal to the eager blocks'."""
+    from cmusphinx_tpu_torch.api import Decoder
+    fx = fixture.build(0, size=fixture.SMALL)
+    d = Decoder(device=cuda, **fixture.write_model_dir(fx, str(tmp_path)))
+    t = fx.transcripts
+    corpus = [t[0], t[1], t[0] + t[1], t[1] + t[2], t[0] + t[1] + t[2],
+              t[2] + t[2] + t[1], t[2] * 4, t[0] * 5]
+    feats = d.fp.compute(np.concatenate(fx.ceps * 2))
+    buckets = set()
+    for words in corpus:
+        d.align(feats, words)
+        al = d._aligner
+        g, e = _both(al, lambda: d.align(feats, words))
+        assert d._aligner is al
+        assert g[2] == e[2] and g[3] == e[3]
+        S = len(al._build(words)[0])
+        buckets.add(-(-S // al.STATE_BUCKET))
+    assert len({len(al._build(w)[0]) for w in corpus}) > len(buckets) > 1
+    assert al._runner.stats["captures"] == len(buckets)
+
+
+def test_graphed_searches_replay_without_host_sync(cuda):
+    """Once captured, a grammar batch (`FsgSearch._scan` over the
+    100-frame bucket) and stream chunk, a phone-loop pass and an alignment
+    (their `_scan`s) replay under torch.cuda.set_sync_debug_mode("error"),
+    their device outputs equal to the first run's."""
+    from cmusphinx_tpu_torch.decode.align import AlignSearch
+    from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
+    fx = fixture.build(0, size=fixture.SMALL)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    feats = torch.as_tensor(fp.compute(fx.ceps[1]), device=cuda)
+    fsg = _grammar_search(cuda, fx, "jsgf", prune=True)
+    loop = PhoneLoopSearch(fx.mdef, fx.tmat, fsg.scorer, device=cuda)
+    al = AlignSearch(fx.dict, fx.mdef, fx.tmat, fsg.scorer, device=cuda)
+    T = feats.shape[0]
+    with torch.inference_mode():
+        sc = fsg.scorer.score(feats)
+        padded = torch.cat([sc, sc.new_zeros((200 - T, sc.shape[1]))])
+        b = al._build(fx.transcripts[1])
+        hmm = al._pad_states(b[0], b[1], b[4], b[5])
+        runs = {
+            "fsg_batch": (fsg, lambda: fsg._scan(fsg._init_carry(), padded,
+                                                 0, T)),
+            "fsg_chunk": (fsg, lambda: fsg._scan(fsg._init_carry(),
+                                                 sc[:50], 100, 50)),
+            "phone_loop": (loop, lambda: loop._scan(sc)),
+            "align": (al, lambda: al._scan(sc, *hmm)),
+        }
+        def flat(out):
+            return [y for x in out
+                    for y in (x if isinstance(x, tuple) else (x,))]
+        for name, (s, run) in runs.items():
+            want = [x.clone() for x in flat(run())]
+            torch.cuda.synchronize()
+            n_cap = s._runner.stats["captures"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = flat(run())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            assert s._runner.stats["captures"] == n_cap >= 1, name
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), name
+
+
+_FAILED_SEARCH_CAPTURE = """
+import sys, torch
+from cmusphinx_tpu_torch import fixture
+from cmusphinx_tpu_torch.decode.align import AlignSearch
+from cmusphinx_tpu_torch.decode.fsg_search import FsgSearch
+from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
+from cmusphinx_tpu_torch.frontend import FeatPipeline
+from cmusphinx_tpu_torch.models.jsgf import JsgfGrammar
+from cmusphinx_tpu_torch.ops import ContinuousScorer
+fx = fixture.build(0, size=fixture.SMALL)
+feats = FeatPipeline(fx.feat_config(), device="cpu").compute(fx.ceps[0])
+host = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+
+class HostScores(torch.nn.Module):
+    # The CPU scorer's scores moved to the card (no kernel build).
+    def score(self, x):
+        return host.score(x.cpu()).to(x.device)
+
+searches = {
+    "fsg": FsgSearch(JsgfGrammar.parse(fixture.grammar_jsgf(fx)).build_fsg(),
+                     fx.dict, fx.mdef, fx.tmat, HostScores(), device="cuda"),
+    "phone_loop": PhoneLoopSearch(fx.mdef, fx.tmat, HostScores(),
+                                  device="cuda"),
+    "align": AlignSearch(fx.dict, fx.mdef, fx.tmat, HostScores(),
+                         device="cuda"),
+}
+calls = {"fsg": lambda s: s.decode(feats),
+         "phone_loop": lambda s: s.phone_scores(feats),
+         "align": lambda s: s.align(feats, fx.transcripts[0])}
+s = searches[sys.argv[1]]
+block = s._block
+def reads_host(carry, *a):
+    out = block(carry, *a)
+    float(out[0].amax())
+    return out
+s._block = reads_host
+try:
+    calls[sys.argv[1]](s)
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0][:200])
+    print("cached:", len(s._runner.cache))
+    sys.exit(0)
+print("ran without raising")
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("name", ["fsg", "phone_loop", "align"])
+def test_graphed_search_capture_with_a_host_read_raises(cuda, name):
+    """A host read planted in a grammar, phone-loop or alignment block
+    fails its capture, and the call raises: no eager fallback, nothing
+    cached.  In a process of its own, as the N-gram search's test."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _FAILED_SEARCH_CAPTURE, name],
+                       cwd=root, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "raised:" in r.stdout and "cached: 0" in r.stdout
