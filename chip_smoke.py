@@ -1432,7 +1432,7 @@ def graph_batch_cell(search, fp, fx, card: str) -> dict:
     frame loop under torch.cuda.set_sync_debug_mode("error"); the
     search's captures and capture seconds so far (the phase's decodes and
     streams took them)."""
-    stats = dict(search._graph_stats)
+    stats = dict(search.graph_stats)
     c, T, Ts = search._pad(fx.ceps)
     with torch.inference_mode():
         scores = search.scorer.score(fp._padded_kernel(c, T, True))
@@ -1469,7 +1469,7 @@ def graph_batch_cell(search, fp, fx, card: str) -> dict:
                   "ms_a_frame": 1e3 * loop / frames,
                   "window_frames": w})
     with torch.inference_mode():
-        before = search._graph_stats["captures"]
+        before = search.graph_stats["captures"]
         torch.cuda.set_sync_debug_mode("error")
         try:
             search._viterbi(scores, valid)
@@ -1484,7 +1484,7 @@ def graph_batch_cell(search, fp, fx, card: str) -> dict:
            "captures": stats["captures"], "capture_s": stats["capture_s"],
            "graphs_cached": len(search._graph_cache),
            "replayed_without_capture":
-               search._graph_stats["captures"] == before,
+               search.graph_stats["captures"] == before,
            "replay_sync_free": sync_free,
            "tapes_bit_equal": all(np.array_equal(a, b) for a, b in
                                   zip(g.pop("tapes"), e.pop("tapes"))),
@@ -1574,12 +1574,12 @@ def graph_traffic_cell(search, fp, seq, card: str, one=None) -> dict:
     the graphs cached, and the card memory the graphs held; what the
     search's earlier cells left cached is released first and reported."""
     earlier = release_graphs(search)
-    stats0 = dict(search._graph_stats)
+    stats0 = dict(search.graph_stats)
     res = {}
     for m in ("graphed_cold", "eager", "graphed_warm"):
         walls = {}
         tapes, words = [], []
-        before = dict(search._graph_stats)
+        before = dict(search.graph_stats)
         with frame_loop(search, m != "eager"):
             for B, ceps in seq:
                 torch.cuda.synchronize()
@@ -1595,11 +1595,11 @@ def graph_traffic_cell(search, fp, seq, card: str, one=None) -> dict:
                               for a in search._last_batch[0]])
                 words.append([segs(h) for h in hyps])
         res[m] = {"wall_s": walls, "total_s": sum(walls.values()),
-                  "captures": search._graph_stats["captures"]
+                  "captures": search.graph_stats["captures"]
                   - before["captures"],
-                  "capture_s": search._graph_stats["capture_s"]
+                  "capture_s": search.graph_stats["capture_s"]
                   - before["capture_s"],
-                  "replays": search._graph_stats["replays"]
+                  "replays": search.graph_stats["replays"]
                   - before["replays"],
                   "tapes": tapes, "segs": words}
     e = res["eager"]
@@ -1625,7 +1625,7 @@ def graph_traffic_cell(search, fp, seq, card: str, one=None) -> dict:
                              and out["graphed_warm_segments_equal"])
     out.update(res)
     out["graph_memory"] = release_graphs(search)
-    out["captures_total"] = search._graph_stats["captures"] - stats0[
+    out["captures_total"] = search.graph_stats["captures"] - stats0[
         "captures"]
     return out
 
@@ -1685,7 +1685,7 @@ def search_traffic(get_search, items, run_one, same) -> dict:
     res = {}
     for m in TRAFFIC_MODES:
         s = get_search()
-        before = dict(s._runner.stats) if s is not None else {
+        before = dict(s.graph_stats) if s is not None else {
             "captures": 0, "capture_s": 0.0, "replays": 0}
         outs = []
         fused_mixture_scores.launches = 0
@@ -1698,7 +1698,7 @@ def search_traffic(get_search, items, run_one, same) -> dict:
                 outs.append(run_one(x))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        st = get_search()._runner.stats
+        st = get_search().graph_stats
         res[m] = {"wall_s": wall,
                   "k1_launches": fused_mixture_scores.launches,
                   **{k: st[k] - before[k]
@@ -1722,7 +1722,7 @@ def replay_check(search, run) -> dict:
     with torch.inference_mode():
         run()
         torch.cuda.synchronize()
-        n = search._runner.stats["captures"]
+        n = search.graph_stats["captures"]
         torch.cuda.set_sync_debug_mode("error")
         try:
             run()
@@ -1731,7 +1731,7 @@ def replay_check(search, run) -> dict:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
     return {"replay_sync_free": ok,
-            "replayed_without_capture": search._runner.stats["captures"] == n}
+            "replayed_without_capture": search.graph_stats["captures"] == n}
 
 
 def search_windows(search, run) -> dict:
@@ -2155,7 +2155,7 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
              "stream_k1_launches": ns,
              "block_frames": search.BLOCK,
              "graphs_cached": len(search._runner.cache),
-             "graph_stats": dict(search._runner.stats),
+             "graph_stats": dict(search.graph_stats),
              "exits_bit_equal": all(
                  equal_arrays(x, y) for p in (main, warm)
                  for x, y in zip(p["exits"], eager["exits"])),
@@ -2251,7 +2251,7 @@ def phase_align_allphone(dev, fx) -> dict:
            "state_bucket": aligner.STATE_BUCKET,
            "block_frames": aligner.BLOCK,
            "graphs_cached": len(aligner._runner.cache),
-           "graph_stats": dict(aligner._runner.stats),
+           "graph_stats": dict(aligner.graph_stats),
            "bit_equal_to_eager": all(
                same_alignment(x[1], y[1])
                for p in (main, warm) for x, y in zip(p, eager)),

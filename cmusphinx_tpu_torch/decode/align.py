@@ -82,6 +82,9 @@ class AlignSearch:
         self._graphs = True
         self._runner = BlockRunner()
 
+    # The runner's counters (captures, capture_s, replays).
+    graph_stats = property(lambda self: self._runner.stats)
+
     # ------------------------------------------------------------------
     def _build(self, words: Sequence[str], add_sil: bool = True):
         """Sentence HMM over the triphone pids, as host arrays."""

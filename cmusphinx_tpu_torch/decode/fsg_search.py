@@ -191,6 +191,9 @@ class FsgSearch(nn.Module):
         self._graphs = True
         self._runner = BlockRunner()
 
+    # The runner's counters (captures, capture_s, replays).
+    graph_stats = property(lambda self: self._runner.stats)
+
     # The graph's tables are the N-gram search's: the same buffers, the
     # same readers.
     _buf = NgramSearch._buf

@@ -23,6 +23,11 @@ graph per block length, whatever the utterance's length.  State that is
 the same for every block of a call (the aligner's transition matrix)
 rides in the carry: it is copied into a graph once a call and the block
 returns it unchanged.
+
+Under a profiler, `scan` is a `frame_loop` span (`utils/profile.span`),
+and each capture inside it a `frame_loop.capture` span; a replay has none
+of its own.  A search exposes the runner's counters `stats` as its
+`graph_stats`.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from collections import Counter, OrderedDict
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
+
+from ..utils.profile import span
 
 # Captured blocks a search keeps (least recently used dropped first).  16
 # holds an N-gram search serving three batch sizes at five side-table
@@ -130,20 +137,23 @@ class BlockRunner:
         (default t0).  Returns the carry.  With `graphed`, each block is a
         replay of a captured graph (`_graphed`); else it runs eagerly,
         writing views of the tape."""
-        ax = self.axis
-        n = next(x for x in inputs if x is not None).shape[ax]
-        row0 = t0 if row0 is None else row0
-        if n == 0:
+        with span("frame_loop"):
+            ax = self.axis
+            n = next(x for x in inputs if x is not None).shape[ax]
+            row0 = t0 if row0 is None else row0
+            if n == 0:
+                return carry
+            if graphed:
+                return self._graphed(block, carry, inputs, tape, t0, K,
+                                     row0, n)
+            dev = carry[0].device
+            for k0 in range(0, n, K):
+                m = min(K, n - k0)
+                t = torch.full((), t0 + k0, dtype=torch.int64, device=dev)
+                carry = block(carry, self._slice(inputs, k0, m), t,
+                              tuple(a.narrow(ax, row0 + k0, m)
+                                    for a in tape))
             return carry
-        if graphed:
-            return self._graphed(block, carry, inputs, tape, t0, K, row0, n)
-        dev = carry[0].device
-        for k0 in range(0, n, K):
-            m = min(K, n - k0)
-            t = torch.full((), t0 + k0, dtype=torch.int64, device=dev)
-            carry = block(carry, self._slice(inputs, k0, m), t,
-                          tuple(a.narrow(ax, row0 + k0, m) for a in tape))
-        return carry
 
     def _slice(self, inputs, k0: int, m: int) -> tuple:
         return tuple(None if x is None else x.narrow(self.axis, k0, m)
@@ -188,7 +198,8 @@ class BlockRunner:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             t_start = time.perf_counter()
-            g = BlockGraph(self, block, carry, blk, t0, rows)
+            with span("frame_loop.capture"):
+                g = BlockGraph(self, block, carry, blk, t0, rows)
             self.stats["captures"] += 1
             self.stats["capture_s"] += time.perf_counter() - t_start
             while len(self.cache) >= GRAPH_CACHE:

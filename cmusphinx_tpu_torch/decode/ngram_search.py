@@ -68,6 +68,15 @@ Lattices are built on the host from one utterance's tape
 
 `maxbatch` is accepted and has no effect: chunking a batch was a
 workaround for TPU compiler crashes.
+
+Under a profiler a batch decode is tiled by spans (`utils/profile.span`):
+`ngram.pad` (host padding and the copies to the device), `ngram.features`,
+`ngram.score`, `ngram.lookahead` (with `pl_window`), the runner's
+`frame_loop`, `ngram.backtrace` (the chase and its copy to the host) and
+`ngram.hyps` (the hypotheses, and bestpath).  `profile` counts
+`host_reads`: each read of a batch's results from the device that blocks
+the host (the chase's early-exit tests, its copy, and the batch's host
+tapes that bestpath and the lattice read).
 """
 
 from __future__ import annotations
@@ -89,6 +98,7 @@ from ..models.tmat import TransitionMatrices
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from ..utils import native
 from ..utils.config import Arg, Config
+from ..utils.profile import Profile, span
 from .graphs import GRAPH_CACHE, BlockRunner  # noqa: F401 (read by tests)
 from .lattice import LatNode, Lattice
 from .lexgraph import build_word_graph
@@ -306,6 +316,8 @@ class NgramSearch(nn.Module):
         self.dlm = DeviceNgram(lm, device=self.device)
         self._graphs = True
         self._runner = BlockRunner(axis=1, counters=(self.dlm.calls,))
+        self.profile = Profile()
+        self._host_reads = self.profile.counter("host_reads")
         self.start_lmwid = lm.word_id("<s>")
         self.finish_lmwid = lm.word_id("</s>")
         self.sil_ci = mdef.sil if mdef.sil >= 0 else 0
@@ -1058,10 +1070,12 @@ class NgramSearch(nn.Module):
         scores, valid, la = inputs
         return self._block(carry, scores, t, valid, rows, la)
 
-    # The runner's graph cache, pool and counters (captures, capture_s,
-    # replays), under the names the tests and chip_smoke.py read.
+    # The runner's counters (captures, capture_s, replays); its graph
+    # cache and pool under the names the tests and chip_smoke.py read.
+    graph_stats = property(lambda self: self._runner.stats)
     _graph_cache = property(lambda self: self._runner.cache)
     _graph_pool = property(lambda self: self._runner.pool)
+    # Read by portbench/drive.py, until its reader moves to graph_stats.
     _graph_stats = property(lambda self: self._runner.stats)
 
     def _tape(self, B: int, frames: int, fill: bool = False) -> tuple:
@@ -1083,14 +1097,19 @@ class NgramSearch(nn.Module):
         """Padded feats [B, Tpad, D] + valid mask [B, Tpad] -> backpointer
         tapes (tw, tsc, tprev, th2, th1 [B, Tpad*E]; trc [B, Tpad*E, Vr]),
         slot = t*E + e."""
-        return self._viterbi(self.scorer.score(feats), valid)
+        with span("ngram.score"):
+            scores = self.scorer.score(feats)
+        return self._viterbi(scores, valid)
 
     def _viterbi(self, scores: torch.Tensor, valid: torch.Tensor):
         """`device_decode` from the senone scores [B, Tpad, n_sen]: the
         lookahead, then the frame loop; no host read."""
         B, Tpad = scores.shape[0], scores.shape[1]
         E, Vr = self.E, self.graph.n_rcvar
-        la = self._lookahead(scores, Tpad) if self.pl_window else None
+        la = None
+        if self.pl_window:
+            with span("ngram.lookahead"):
+                la = self._lookahead(scores, Tpad)
         tape = self._tape(B, Tpad)
         carry = (self._init_static(B, self._side_frames(Tpad)) if self._fast
                  else self._init_hmmc(B))
@@ -1144,8 +1163,10 @@ class NgramSearch(nn.Module):
         rows = torch.arange(B, device=dev)
         i = torch.zeros(B, dtype=torch.int64, device=dev)
         for it in range(maxseg):
-            if it % 8 == 0 and not bool((slot >= 0).any()):
-                break
+            if it % 8 == 0:
+                self._host_reads.increment()
+                if not bool((slot >= 0).any()):
+                    break
             ok = (slot >= 0) & (i < maxseg)
             s0 = slot.clamp_min(0)
             prev = tprev[rows, s0].long()
@@ -1188,27 +1209,34 @@ class NgramSearch(nn.Module):
     def _pad(self, arrays) -> tuple:
         """List of [T_i, n] -> ([B, Tpad, n] tensor, T [B] tensor, Ts)
         with Tpad a multiple of FRAME_BUCKET (the reference's tape shape)."""
-        Ts = [int(a.shape[0]) for a in arrays]
-        Tpad = -(-max(max(Ts), 1) // self.FRAME_BUCKET) * self.FRAME_BUCKET
-        buf = np.zeros((len(arrays), Tpad, int(arrays[0].shape[1])),
-                       np.float32)
-        for i, a in enumerate(arrays):
-            buf[i, : Ts[i]] = a
-        return (torch.as_tensor(buf, device=self.device),
-                torch.as_tensor(Ts, dtype=torch.int64, device=self.device), Ts)
+        with span("ngram.pad"):
+            Ts = [int(a.shape[0]) for a in arrays]
+            Tpad = (-(-max(max(Ts), 1) // self.FRAME_BUCKET)
+                    * self.FRAME_BUCKET)
+            buf = np.zeros((len(arrays), Tpad, int(arrays[0].shape[1])),
+                           np.float32)
+            for i, a in enumerate(arrays):
+                buf[i, : Ts[i]] = a
+            return (torch.as_tensor(buf, device=self.device),
+                    torch.as_tensor(Ts, dtype=torch.int64,
+                                    device=self.device), Ts)
 
     def _run(self, feats: torch.Tensor, T: torch.Tensor, Ts,
              bestpath: Optional[bool]) -> List[Hypothesis]:
         valid = (torch.arange(feats.shape[1], device=self.device)[None, :]
                  < T[:, None])
         tapes = self.device_decode(feats, valid)
-        chase = self.device_backtrace(tapes, T).cpu().numpy()
+        with span("ngram.backtrace"):
+            chase = self.device_backtrace(tapes, T)
+            self._host_reads.increment()
+            chase = chase.cpu().numpy()
         self._last = None
         self._last_batch = (tapes, Ts, len(Ts) - 1)
         self._host_tapes = None
-        out = [self._hyp_from_chase(c) for c in chase]
         bp = bool(self.config["bestpath"]) if bestpath is None else bestpath
-        return self._rescore_batch(out) if bp else out
+        with span("ngram.hyps"):
+            out = [self._hyp_from_chase(c) for c in chase]
+            return self._rescore_batch(out) if bp else out
 
     def decode(self, feats: np.ndarray,
                bestpath: Optional[bool] = None) -> Hypothesis:
@@ -1238,7 +1266,9 @@ class NgramSearch(nn.Module):
         if not cep_list:
             return []
         c, T, Ts = self._pad(cep_list)
-        return self._run(fp._padded_kernel(c, T, True), T, Ts, bestpath)
+        with span("ngram.features"):
+            feats = fp._padded_kernel(c, T, True)
+        return self._run(feats, T, Ts, bestpath)
 
     # ------------------------------------------------------------------
     # Streaming decode: the carry and the tape stay on the device between
@@ -1389,8 +1419,9 @@ class NgramSearch(nn.Module):
         """The last batch's tapes on the host, [B, Tpad*E(, Vr)]: one copy
         per array, made once per batch."""
         if self._host_tapes is None:
-            self._host_tapes = tuple(a.cpu().numpy()
-                                     for a in self._last_batch[0])
+            tapes = self._last_batch[0]
+            self._host_reads.increment(len(tapes))
+            self._host_tapes = tuple(a.cpu().numpy() for a in tapes)
         return self._host_tapes
 
     def select_utt(self, i: int) -> None:

@@ -65,6 +65,9 @@ class PhoneLoopSearch:
         self._graphs = True
         self._runner = BlockRunner()
 
+    # The runner's counters (captures, capture_s, replays).
+    graph_stats = property(lambda self: self._runner.stats)
+
     def _block(self, carry, inputs, t, rows) -> tuple:
         """Frames of the senone scores [K, n_sen] (valid [K]) through the
         loop, writing rows k of best [K] and phones [K, n_ci]; no host

@@ -8,13 +8,34 @@ used for xRT reporting in batch.c:759-777) and `pctr_t` named counters
 A copy of `cmusphinx_tpu/utils/profile.py`.  Timers optionally
 synchronize the device (`Timer.stop(sync=torch.cuda.synchronize)`) so
 device work is attributed to the interval that launched it.
+
+`span(name)` names a stretch of the program in a `torch.profiler` trace:
+while a profiler records, it is a `record_function` range, which the
+trace holds as a `user_annotation` event on the clock of the device's
+kernel, memcpy and memset records; otherwise it is one shared no-op
+context, and costs one flag check.  The spans live only in the
+profiler's own events: whoever runs the profiler exports its trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function` range named `name` while a profiler records,
+    else the shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @dataclass

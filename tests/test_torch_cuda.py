@@ -3,9 +3,10 @@ one-utterance decode through it, the other scorers, the frontend, the
 Decoder, the LM backends, the large-vocabulary searches, the streaming
 decode and the lattice results on the card against their CPU runs, K1 on
 senone shards against the unsharded call, `tools fe` on the card
-against `-platform cpu`, and every search's frame loop through captured
-CUDA graphs against its eager blocks (bit-equal).  Skips where there is
-no CUDA device.
+against `-platform cpu`, every search's frame loop through captured
+CUDA graphs against its eager blocks (bit-equal), and the frame loop's
+span holding its graphs' kernels in a profiler trace.  Skips where there
+is no CUDA device.
 
 Tolerances against the CPU run: `PsParityScorer`'s epilogue bit-exact on
 the same int32 densities, and the whole scorer bit-exact on an
@@ -28,10 +29,12 @@ On a machine with the card (which has no JAX):
 
 import copy
 import faulthandler
+import json
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.models.gauden import GaussianParams
@@ -957,7 +960,7 @@ def test_graphed_frame_loop_bit_equal_to_eager(cuda, case):
         _assert_same_hyps(gh, eh)
         assert all(torch.equal(a, b) for a, b in zip(gt, et))
         assert gcalls == ecalls and sum(ecalls.values()) > 0
-    assert s._graph_stats["captures"] >= 3   # 100 frames; 37, the last
+    assert s.graph_stats["captures"] >= 3   # 100 frames; 37, the last
     feats = FeatPipeline(fx.feat_config(), device="cpu").compute(fx.ceps[1])
     (gh, gt, gF), gcalls = _run(s, True, lambda: _stream(s, feats))
     (eh, et, eF), ecalls = _run(s, False, lambda: _stream(s, feats))
@@ -965,7 +968,7 @@ def test_graphed_frame_loop_bit_equal_to_eager(cuda, case):
     assert gF == eF > 100 and gcalls == ecalls
     assert all(torch.equal(a, b) for a, b in zip(gt, et))
     assert len(s._graph_cache) <= ngram_search.GRAPH_CACHE
-    assert s._graph_stats["replays"] > 0
+    assert s.graph_stats["replays"] > 0
 
 
 @pytest.mark.parametrize("case", ["mpx", "static", "tree"])
@@ -988,7 +991,7 @@ def test_graphed_mixed_lengths_share_graphs(cuda, case):
         _assert_same_hyps(gh, eh)
         assert all(torch.equal(a, b) for a, b in zip(gt, et))
     want = 1 if case == "mpx" else len({s._side_frames(len(c)) for c in ceps})
-    assert s._graph_stats["captures"] == len(s._graph_cache) == want
+    assert s.graph_stats["captures"] == len(s._graph_cache) == want
     assert s._graph_pool is not None
 
 
@@ -1020,10 +1023,10 @@ def test_graphed_decode_keeps_earlier_tapes(cuda):
     s.decode_batch_cep(fx.ceps[:2], fp)
     first = s._last_batch[0]
     kept = [t.clone() for t in first]
-    n = s._graph_stats["captures"]
+    n = s.graph_stats["captures"]
     s.decode_batch_cep(fx.ceps[1:3], fp)
     torch.cuda.synchronize()
-    assert s._graph_stats["captures"] == n     # replayed, not recaptured
+    assert s.graph_stats["captures"] == n     # replayed, not recaptured
     assert not all(torch.equal(a, b) for a, b in zip(s._last_batch[0], kept))
     assert all(torch.equal(a, b) for a, b in zip(first, kept))
 
@@ -1042,15 +1045,57 @@ def test_graphed_replays_make_no_host_sync(cuda):
             scores = s.scorer.score(fp._padded_kernel(c, T, True))
             want = s._viterbi(scores, valid)
             torch.cuda.synchronize()
-            n = s._graph_stats["captures"]
+            n = s.graph_stats["captures"]
             torch.cuda.set_sync_debug_mode("error")
             try:
                 got = s._viterbi(scores, valid)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        assert n >= 1 and s._graph_stats["captures"] == n
+        assert n >= 1 and s.graph_stats["captures"] == n
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_frame_loop_span_holds_its_graph_kernels(cuda, tmp_path):
+    """Under the profiler, a fresh search's first decode captures inside
+    `frame_loop.capture` spans nested in `frame_loop`; a graphed decode's
+    `frame_loop` span holds kernels of its replays, found through the
+    correlation id that a kernel shares with its `cudaGraphLaunch`, and
+    starts before the first of them on the trace's one clock."""
+    fx = fixture.build(0, size=fixture.MEDIUM)
+    s = _card_search(cuda, fx, lexmode="tree")
+    fp = FeatPipeline(fx.feat_config(), device=cuda)
+
+    def spans(path, activities):
+        with profile(activities=activities) as p:
+            s.decode_batch_cep(fx.ceps, fp)
+            torch.cuda.synchronize()
+        p.export_chrome_trace(str(path))
+        with open(path) as fh:
+            return json.load(fh)["traceEvents"]
+
+    ev = spans(tmp_path / "first.json", [ProfilerActivity.CPU])
+    ann = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+           if e.get("cat") == "user_annotation"]
+    (l0, l1, _), = [a for a in ann if a[2] == "frame_loop"]
+    caps = [a for a in ann if a[2] == "frame_loop.capture"]
+    assert caps and all(l0 <= a <= b <= l1 for a, b, _ in caps)
+    assert len(caps) == s.graph_stats["captures"]
+
+    ev = spans(tmp_path / "replay.json",
+               [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    (l0, l1), = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+                 if e.get("cat") == "user_annotation"
+                 and e["name"] == "frame_loop"]
+    graph_launch = {e["args"]["correlation"] for e in ev
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and e["name"].startswith("cudaGraphLaunch")
+                    and l0 <= e["ts"] <= l1}
+    kernels = [e["ts"] for e in ev if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in graph_launch]
+    assert graph_launch and kernels
+    assert l0 < min(kernels)
+    assert s.graph_stats["captures"] == len(caps)
 
 
 _FAILED_CAPTURE = """
@@ -1177,8 +1222,8 @@ def test_graphed_grammar_bit_equal_to_eager(cuda, kind, prune):
         assert gh == eh and gh[0] == words and _equal_arrays(gx, ex)
         (gp, gf, gt), (ep, ef, et) = _both(s, lambda: _fsg_stream(s, feats))
         assert gp == ep and gf == ef and _equal_arrays(gt, et)
-    assert s._runner.stats["captures"] == len(s._runner.cache) == 1
-    assert s._runner.stats["replays"] > 0
+    assert s.graph_stats["captures"] == len(s._runner.cache) == 1
+    assert s.graph_stats["replays"] > 0
 
 
 def test_graphed_grammar_lengths_share_one_graph(cuda):
@@ -1193,7 +1238,7 @@ def test_graphed_grammar_lengths_share_one_graph(cuda):
         (gh, gx), (eh, ex) = _both(s, lambda: _fsg_decode(s, feats))
         assert gh == eh and _equal_arrays(gx, ex)
         assert gx[0].shape[0] == len(feats)
-    assert s._runner.stats["captures"] == len(s._runner.cache) == 1
+    assert s.graph_stats["captures"] == len(s._runner.cache) == 1
 
 
 def test_graphed_grammar_streams_interleaved(cuda):
@@ -1235,8 +1280,8 @@ def test_graphed_phone_loop_and_alignment_bit_equal_to_eager(cuda):
             assert [(p.phone, p.start_frame, p.end_frame) for p in g[1]] \
                 == [(p.phone, p.start_frame, p.end_frame) for p in e[1]]
             buckets.add(-(-len(al._build(w)[0]) // al.STATE_BUCKET))
-    assert loop._runner.stats["captures"] == 1
-    assert al._runner.stats["captures"] == len(buckets)
+    assert loop.graph_stats["captures"] == 1
+    assert al.graph_stats["captures"] == len(buckets)
 
 
 def test_graphed_alignment_buckets_share_graphs(cuda, tmp_path):
@@ -1260,7 +1305,7 @@ def test_graphed_alignment_buckets_share_graphs(cuda, tmp_path):
         S = len(al._build(words)[0])
         buckets.add(-(-S // al.STATE_BUCKET))
     assert len({len(al._build(w)[0]) for w in corpus}) > len(buckets) > 1
-    assert al._runner.stats["captures"] == len(buckets)
+    assert al.graph_stats["captures"] == len(buckets)
 
 
 def test_graphed_searches_replay_without_host_sync(cuda):
@@ -1296,14 +1341,14 @@ def test_graphed_searches_replay_without_host_sync(cuda):
         for name, (s, run) in runs.items():
             want = [x.clone() for x in flat(run())]
             torch.cuda.synchronize()
-            n_cap = s._runner.stats["captures"]
+            n_cap = s.graph_stats["captures"]
             torch.cuda.set_sync_debug_mode("error")
             try:
                 got = flat(run())
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-            assert s._runner.stats["captures"] == n_cap >= 1, name
+            assert s.graph_stats["captures"] == n_cap >= 1, name
             assert all(torch.equal(x, y) for x, y in zip(got, want)), name
 
 

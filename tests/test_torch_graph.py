@@ -208,7 +208,7 @@ def test_block_runner_batch_matches_reference(case, request, reference):
     assert lens[0] > 2 * K_RUNNER
     assert_tapes_match(tapes, jtapes, E)
     assert_hyps_match(hyps, jhyps)
-    assert not s._graph_cache and s._graph_stats["captures"] == 0
+    assert not s._graph_cache and s.graph_stats["captures"] == 0
 
 
 @pytest.mark.parametrize("case", ["mpx_lookahead", "static", "tree_copies"])

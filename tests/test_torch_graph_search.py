@@ -20,6 +20,8 @@ and the searches run block by block against the JAX package.
 - The aligner's state bucket: `_viterbi` with the states padded to a
   multiple of 128 and of 64 is bit-equal to the unpadded run.
 - On the CPU nothing is captured.
+- Each search's `graph_stats` is its runner's counters (the N-gram
+  search's `_graph_stats` the same).
 
 The card's half (graphed against eager, bit-equal) is in
 tests/test_torch_cuda.py.
@@ -36,7 +38,7 @@ from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode.align import AlignSearch
 from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from test_torch_align import _same_alignment
-from test_torch_graph import _host_reads, _Record
+from test_torch_graph import _host_reads, _Record, _search
 from test_torch_grammar import (Identity, _same, _scored, _searches,
                                 assert_exits_match)
 
@@ -160,7 +162,7 @@ def test_fsg_blocks_match_reference(kind, size, kw, request, tmp_path):
         assert_exits_match(ts._last, js._last)
         assert h.words == fx.transcripts[i]
         assert lens[-1] % 100 == 0 and lens[-1] % K_RUNNER
-    assert not ts._runner.cache and ts._runner.stats["captures"] == 0
+    assert not ts._runner.cache and ts.graph_stats["captures"] == 0
 
 
 @pytest.mark.parametrize("kind", ["jsgf", "fsg"])
@@ -254,3 +256,21 @@ def test_decoder_keeps_one_aligner(small, tmp_path):
     d.align(al.scorer.score(torch.as_tensor(feats[1])).numpy(),
             fx.transcripts[1])
     assert d._aligner is not al and d._aligner.scorer is d.scorer
+
+
+@pytest.mark.parametrize("kind", ["ngram", "fsg", "align", "phone_loop"])
+def test_graph_stats_are_the_runners_counters(kind, small, tmp_path):
+    fx, scores = small
+    if kind == "ngram":
+        s = _search(fx, {})
+    elif kind == "fsg":
+        s = _searches(fx, "jsgf", str(tmp_path))[0]
+    elif kind == "align":
+        s = AlignSearch(fx.dict, fx.mdef, fx.tmat, Identity(), device="cpu")
+    else:
+        s = PhoneLoopSearch(fx.mdef, fx.tmat, Identity(), device="cpu")
+    st = s.graph_stats
+    assert st is s._runner.stats
+    assert set(st) == {"captures", "capture_s", "replays"}
+    if kind == "ngram":
+        assert s._graph_stats is st
