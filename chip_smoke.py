@@ -211,13 +211,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    search's frame loop under torch.cuda.set_sync_debug_mode("error"), and
    the device's events, busy ms and idle share over a PROFILE_FRAMES
    window of each frame loop, graphed and eager.
+34. tree_step: the one-copy tree step's two kernels (ops/tree_step.py,
+   csrc/tree_step.cu) at the 64k cell's shape (`TREE_SHAPE`, seeded
+   tables and scores) against their plain version on the card, bit for
+   bit, with the beams on and off, with and without the bigram
+   corrections and the phone-loop lookahead; the time of each kernel and
+   of the plain version (CUDA events), and their bound (the bytes the two
+   kernels move at the least, `tree_step.least_bytes`, over the memory
+   rate).  Phases 8, 9, 11 and 12 count the kernels' launches on the
+   main path (`tree_step.launches`: two a frame step of the one-copy
+   tree, none in a flat lexicon's decode).
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
 23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
 13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11,
-phase 33 after 17.
+phase 33 after 17, phase 34 after 3.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -253,8 +263,8 @@ from cmusphinx_tpu_torch.decode.align_tp import _pred_table, align_time_parallel
 from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
-                                     SemiContinuousScorer, approx, fused_gmm,
-                                     subvq)
+                                     SemiContinuousScorer, approx, cuda_libs,
+                                     fused_gmm, subvq, tree_step)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 from cmusphinx_tpu_torch.models.gauden import read_gauden
@@ -309,6 +319,10 @@ SAME_MODE = {"highest": lambda d: 2 * d * 2.0 ** -22,
 # sheet): tensor cores 495 TFLOP/s tf32, 989 bf16; 3.35 TB/s of memory.
 PEAK_FLOPS = {"tf32": 495e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
+# Phase 34: the 64k tree's step (portbench's hub4cont-64k at B=16): its
+# channels, emitting states, senone-sequence rows, roots and CI phones.
+TREE_SHAPE = {"B": 16, "C": 262717, "S": 3, "n_xs": 60636, "R": 1523,
+              "n_ci": 40}
 # Exps a clock on each SM's special-function units (sm_90), at the card's
 # highest SM clock as nvidia-smi reports it (phase 1).  That K1's exps run
 # on these units alone is an assumption of its design, not a hard limit:
@@ -410,7 +424,7 @@ def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port has no CPU "
                          "fallback for this run")
-    nvcc = subprocess.run([fused_gmm.nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([cuda_libs.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
@@ -425,16 +439,22 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    """K1's units (nvcc, in parallel) and, beside them, the lattice phase's
-    C++ host runtime (g++)."""
+    """K1's units and the tree step's (nvcc, in parallel) and, beside
+    them, the lattice phase's C++ host runtime (g++)."""
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         host = pool.submit(native.loaded)
         secs = fused_gmm.build()
         host_loaded = host.result()
-    log = fused_gmm.library_path().with_suffix(".log").read_text()
+    tree_step.build()
+    k1_lib = cuda_libs.library_path(fused_gmm.LIBRARY)
+    log = k1_lib.with_suffix(".log").read_text()
+    tree_log = cuda_libs.library_path(tree_step.LIBRARY).with_suffix(
+        ".log").read_text()
     emit({"phase": "build", "seconds": round(secs, 3),
+          "tree_step_ptxas": [ln.strip() for ln in tree_log.splitlines()
+                              if "registers" in ln or "spill" in ln],
           "native_loaded": host_loaded,
-          "library": fused_gmm.library_path().name,
+          "library": k1_lib.name,
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln],
           # ptxas's advisories that it serialised wgmma (none expected).
@@ -1149,6 +1169,17 @@ def submit_batch_holds(holds: Holds, name: str, spec, kind: str, kw: dict,
                      [t[:1] for t in tapes], Ts[0], segs(hyps[0]))
 
 
+def check_tree_launches(name: str, search, counts: dict, steps: int) -> None:
+    """`tree_step.launches` over `steps` padded frame steps of `search`:
+    each kernel once a step where the search runs the one-copy tree step,
+    else neither."""
+    tree = search._fast and search._tree and search.nlextree == 1
+    want = {"step_exits": steps, "prune_enter": steps} if tree else {}
+    if counts != want:
+        raise AssertionError(f"{name}: the tree step's kernels launched "
+                             f"{counts} over {steps} frame steps, not {want}")
+
+
 def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
                       want_lex: str, want_lm: str, hold_utts: int | None,
                       holds: Holds) -> dict:
@@ -1173,12 +1204,14 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_mixture_scores.launches = 0
+    tree_step.launches.clear()
     search.dlm.calls.clear()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, fp)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = fused_mixture_scores.launches
+    tree_launches = dict(tree_step.launches)
     lm_calls = dict(search.dlm.calls)
     peak = peak_mb()
     if lm_calls.get(want_lm, 0) < 1:
@@ -1186,6 +1219,7 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
                              f"{want_lm}")
     tapes = [t.cpu().numpy() for t in search._last_batch[0]]
     frames = int(tapes[0].shape[1] // search.E)
+    check_tree_launches(name, search, tree_launches, frames)
 
     walls = []
     for _ in range(DECODE_PASSES):
@@ -1217,8 +1251,8 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
            "audio_s": fx.audio_seconds, "setup_s": setup_s,
            "first_decode_s": first_s, "decode_s": walls,
            "median_decode_s": med, "xRT": fx.audio_seconds / med,
-           "k1_launches": launches, "peak_mb": peak,
-           "hyps_identical_across_passes": True,
+           "k1_launches": launches, "tree_step_launches": tree_launches,
+           "peak_mb": peak, "hyps_identical_across_passes": True,
            "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref,
            "cpu_hold_utterances": hold_utts}
     emit(out)
@@ -1288,6 +1322,7 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
     """`utts` utterances streamed (max_frames[k] for the k-th), counted
     and timed, each held to its batch row (`hold_stream`)."""
     fused_mixture_scores.launches = 0
+    tree_step.launches.clear()
     torch.cuda.synchronize()
     holds, lat_ms, chunks, grew = [], [], 0, []
     wall = 0.0
@@ -1300,11 +1335,13 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
         chunks += -(-len(feats_list[i]) // T_STREAM)
         grew.append(st["max_frames"] > mf)
     launches = fused_mixture_scores.launches
+    tree_launches = dict(tree_step.launches)
     audio_s = sum(len(feats_list[i]) for i in utts) / 100.0
     total, partial = np.array(lat_ms).T
     out = {"phase": name, "utterances": len(utts), "chunk_frames": T_STREAM,
            "chunks": chunks, "k1_launches": launches,
-           "tape_grew": grew, "audio_s": audio_s, "stream_wall_s": wall,
+           "tree_step_launches": tree_launches, "tape_grew": grew,
+           "audio_s": audio_s, "stream_wall_s": wall,
            "xRT": audio_s / wall,
            "push_partial_ms_p50": float(np.percentile(total, 50)),
            "push_partial_ms_p99": float(np.percentile(total, 99)),
@@ -1321,6 +1358,7 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
     if launches < chunks:
         raise AssertionError(f"{name}: K1 launched {launches} times for "
                              f"{chunks} chunks")
+    check_tree_launches(name, search, tree_launches, chunks * search.CHUNK)
     if max_frames[0] < max(len(feats_list[i]) for i in utts) and not any(grew):
         raise AssertionError(f"{name}: the tape never grew")
     return out
@@ -3278,6 +3316,102 @@ def phase_mfu(card: str, k1: dict, semi: dict) -> dict:
     return out
 
 
+def tree_step_inputs(dev, B, C, S, n_xs, R, n_ci):
+    """Seeded inputs of the tree step's kernels: scores and tables of a
+    tree's sizes (each channel's predecessor within the 65,536 channels
+    before it, the first R channels the roots), a third of the channels
+    at NEG_INF, random ages, the second row not valid."""
+    rng = np.random.RandomState(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(*shape, mean=0.0, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    alpha = normal(B, C, S, mean=-2000.0, std=40.0)
+    alpha[torch.rand((B, C), generator=g, device=dev) < 1 / 3] = \
+        tree_step.NEG_INF
+    ages = torch.randint(0, 256, (B, C, S), generator=g, device=dev,
+                         dtype=torch.uint8)
+    c = np.arange(C)
+    has_prev = c >= R
+    pc = np.where(has_prev, np.maximum(c - rng.randint(1, 65537, C), 0), 0)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    bands = tuple(normal(*sh, mean=-1.5, std=0.5).contiguous() for sh in
+                  ((C, S), (C, S - 1), (C, S - 2), (C,), (C,)))
+    tab = tree_step.Tables(
+        i32(rng.randint(0, n_xs, C)), i32(pc),
+        torch.as_tensor(has_prev, device=dev),
+        torch.as_tensor(~has_prev, device=dev),
+        i32(np.where(has_prev, 0, c)), i32(rng.randint(0, n_ci, C)),
+        normal(C, std=3.0), normal(C, mean=-20.0, std=5.0), bands, True,
+        float(np.float32(np.log(1e-48))), float(np.float32(np.log(7e-29))),
+        0.0)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    valid[1] = False
+    return (alpha, ages, normal(B, n_xs, S, mean=-60.0, std=10.0), tab,
+            normal(B, mean=-2040.0, std=20.0), normal(B, R, std=2.0),
+            torch.stack([normal(B, n_ci, mean=-5.0, std=3.0)] * 2, 1)[:, 1],
+            valid)
+
+
+def phase_tree_step(dev) -> dict:
+    """Phase 34: the tree step's kernels at TREE_SHAPE."""
+    sh = TREE_SHAPE
+    alpha, ages, rows, tab, ent, corr, la, valid = tree_step_inputs(
+        dev, **sh)
+
+    def bits(ts):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in ts]
+
+    st = tree_step.step_exits(alpha, ages, rows, tab)
+    equal = {"step_exits": all(torch.equal(a, b) for a, b in zip(
+        bits(st), bits(tree_step.step_exits_ref(alpha, ages, rows, tab))))}
+    for prune, c, la_t in ((True, corr, la), (True, None, None),
+                           (False, corr, None), (False, None, la)):
+        t = tab._replace(prune=prune)
+        outs = [fn(alpha.clone(), ages.clone(), st, ent, c, la_t, valid, t)
+                for fn in (tree_step.prune_enter, tree_step.prune_enter_ref)]
+        equal[f"prune_enter prune={prune} corr={c is not None} "
+              f"lookahead={la_t is not None}"] = all(
+            torch.equal(a, b) for a, b in zip(bits(outs[0]), bits(outs[1])))
+    a0, h0 = alpha.clone(), ages.clone()
+    ms_a = cuda_ms(lambda: tree_step.step_exits(alpha, ages, rows, tab))
+    ms_b = cuda_ms(lambda: tree_step.prune_enter(a0, h0, st, ent, corr, la,
+                                                 valid, tab))
+
+    def plain():
+        s = tree_step.step_exits_ref(alpha, ages, rows, tab)
+        tree_step.prune_enter_ref(a0, h0, s, ent, corr, la, valid, tab)
+    plain_ms = cuda_ms(plain)
+    nbytes = tree_step.least_bytes(**sh, lookahead=True)
+    out = {"phase": "tree_step", "shape": sh, "bit_equal": equal,
+           "ms_step_exits": ms_a, "ms_prune_enter": ms_b, "ms": ms_a + ms_b,
+           "plain_ms": plain_ms, "bytes": nbytes,
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+    emit(out)
+    if not all(equal.values()):
+        raise AssertionError(f"tree_step: {equal}")
+    return out
+
+
+def tree_step_row(r: dict, main_paths) -> dict:
+    """The kernel-table row of phase 34's result `r`; `launches` sums
+    both kernels' launches over the main-path phases `main_paths`."""
+    return {"name": "tree_step", "route": "cuda",
+            "source": "cmusphinx_tpu_torch/csrc/tree_step.cu",
+            "replaces": "none: cmusphinx_tpu/decode/ngram_search.py "
+                        "_make_core_tree (XLA-compiled jnp)",
+            "launches": sum(sum(p["tree_step_launches"].values())
+                            for p in main_paths),
+            **{k: r[k] for k in ("shape", "ms", "ms_step_exits",
+                                 "ms_prune_enter", "plain_ms", "bound_ms",
+                                 "bound_by")}}
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     info = phase_device()
@@ -3311,6 +3445,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     k1_stream = check_k1(dev, floored=False, modes=MODES, exps_per_s=exps,
                          T=T_STREAM)
     k1_loop = phase_k1_wide(dev, exps)
+    tree_k = phase_tree_step(dev)
     cont = fixture.build(SEED)
     grammar = phase_grammar(dev, cont, tmp, holds)
     train = phase_train(dev, holds, tmp)
@@ -3321,7 +3456,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
             phase_replay(dev, cont, tmp), phase_endpoint(dev, cont),
             phase_align_tp(dev, cont), phase_multi_rank(dev, cont)]
     card = info["nvidia_smi"]
-    _, (fx5k, search, fp, _, _) = phase_large_vocab(
+    static, (fx5k, search, fp, _, _) = phase_large_vocab(
         dev, card, "large_vocab_static", (SEED, "semi", fixture.LARGE_5K),
         "ps", "flat", "rows", hold_utts=None, holds=holds)
     graphs = {"static5k": graph_batch_cell(search, fp, fx5k, card)}
@@ -3384,7 +3519,8 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
         "stream_shape": {"T": T_STREAM, **{k: k1_stream["highest"][k]
                                            for k in keys}},
         "depth_loop": {f"D={d}": {m: {k: k1_loop[d][m][k] for k in keys}
-                                  for m in MODES} for d in D_LOOP}}]}
+                                  for m in MODES} for d in D_LOOP}},
+        tree_step_row(tree_k, (static, tree, stream_tree, stream))]}
 
 
 if __name__ == "__main__":

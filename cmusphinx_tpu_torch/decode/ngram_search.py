@@ -24,8 +24,11 @@ one of three frame steps:
 - `_step_tree`: the prefix-tree lexicon (composite contexts); a unigram
   lookahead smear inside the tree, an optional bigram correction at the
   roots, the exact trigram for a shortlist of exits, and an 8-bit entry
-  age as the token payload.  With `nlextree` N > 1, `_step_tree_copies`
-  runs N copies of the tree `[B, N, C, S]`: copy n takes the n-th best
+  age as the token payload.  Its channel update is `ops/tree_step.py`:
+  on the card two CUDA kernels around the exit readout, each channel
+  reading its senone row from the frame's extended-senone-sequence rows
+  (no expansion).  With `nlextree` N > 1, `_step_tree_copies` runs N
+  copies of the tree `[B, N, C, S]`: copy n takes the n-th best
   history-distinct re-entry, and the payload is the tape slot.
 
 `pl_window` W > 0 adds the CI-phone lookahead to every channel's best
@@ -45,7 +48,7 @@ What differs in form, not in result:
   TPU's lanes); a single utterance is a batch of one.  One step serves
   what the reference splits into its unbatched and batched cores.
 - The frame scan runs in blocks of frames (`_block`: the static and
-  tree steps' senone expansion, then a frame step per frame, the frame
+  tree steps' senone rows, then a frame step per frame, the frame
   index a 0-d tensor advanced on the device).  On the card each block is
   a captured CUDA graph (`graphs.BlockRunner`), captured once per shape
   and replayed block after block: the counterpart of the reference's
@@ -95,6 +98,7 @@ from ..models.mdef import Mdef
 from ..models.ngram import NgramModel
 from ..models.ngram_device import DeviceNgram
 from ..models.tmat import TransitionMatrices
+from ..ops import tree_step
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from ..utils import native
 from ..utils.config import Arg, Config
@@ -154,10 +158,10 @@ NGRAM_ARGS = [
         "Apply beam pruning (prune_channels / save_bp threshold semantics)"),
 ]
 
-# Bytes of expanded senone scores one block of frames of the static and
-# tree steps may hold.  The reference sized its frame blocks for TPU memory
-# (ROADMAP A-x); the expansion is elementwise, so the block changes no
-# result.
+# Bytes of senone scores one block of frames of the static and tree steps
+# may hold (expanded to every channel, or the one-copy tree's rows).  The
+# reference sized its frame blocks for TPU memory (ROADMAP A-x); the
+# expansion is elementwise, so the block changes no result.
 EXPAND_BLOCK_BYTES = 192 << 20
 
 
@@ -315,7 +319,8 @@ class NgramSearch(nn.Module):
         self.E = min(self.E, v.n_word)
         self.dlm = DeviceNgram(lm, device=self.device)
         self._graphs = True
-        self._runner = BlockRunner(axis=1, counters=(self.dlm.calls,))
+        self._runner = BlockRunner(axis=1, counters=(self.dlm.calls,
+                                                     tree_step.launches))
         self.profile = Profile()
         self._host_reads = self.profile.counter("host_reads")
         self.start_lmwid = lm.word_id("<s>")
@@ -403,6 +408,8 @@ class NgramSearch(nn.Module):
                 buf("_psel_bonus", np.where(v.is_filler, fp,
                                             np.float32(self.log_wip)),
                     torch.float32)
+                if self.nlextree == 1:
+                    self._tree_tab = self._tree_tables(g)
         else:
             buf("_lcmap_flat", g.lcmap.reshape(-1))
             buf("_lc_row_base", g.lc_row.astype(np.int64) * g.n_ci)
@@ -523,6 +530,19 @@ class NgramSearch(nn.Module):
             corr0[~has_word] = 0.0
         self._corr0_np = corr0
         self._buf("_corr0", corr0)
+
+    def _tree_tables(self, g) -> tree_step.Tables:
+        """The one-copy tree step's channel tables (`tree_step.Tables`)."""
+        root = np.zeros(g.n_chan, np.int32)
+        root[self._roots_np] = np.arange(self._n_roots)
+        for name, a in (("xs", g.static_xs), ("pc", np.maximum(g.prev_chan, 0)),
+                        ("root", root), ("ci_of", g.ci_of)):
+            self._buf("_tree_" + name, a, torch.int32)
+        return tree_step.Tables(
+            self._tree_xs, self._tree_pc, self._has_prev, self._is_entry,
+            self._tree_root, self._tree_ci_of, self._la_delta_c,
+            self._la_entry_c, tuple(b.contiguous() for b in self._bands()),
+            self.prune, self.log_beam, self.log_wbeam, self._pip32)
 
     def _bgla_rows(self, h: torch.Tensor) -> torch.Tensor:
         """Bigram corrections for history words h [L] -> [L, R]: the base
@@ -898,32 +918,30 @@ class NgramSearch(nn.Module):
             return ex[..., xb: xb + W], exh[..., xb: xb + W]
         return ex[..., self._exit_col], exh[..., self._exit_col]
 
-    def _step_tree(self, carry, sen_t, t, valid_t, tape, la_t=None):
+    def _step_tree(self, carry, rows_t, t, valid_t, tape, la_t=None):
         """One frame of the prefix-tree core with one tree copy: the
         reference's `_make_core_tree` (N = 1) and `_make_core_tree_batched`
-        in one step.  Tokens carry an 8-bit entry age (255 = the initial
-        <s> entry; the increment saturates at 254 + 1); the re-entry always
-        takes the frame's slot 0, so a token's tape slot is (t - age)*E."""
+        in one step, from the frame's senone-sequence rows rows_t [B,
+        n_xs, S].  Tokens carry an 8-bit entry age (255 = the initial <s>
+        entry; the increment saturates at 254 + 1); the re-entry always
+        takes the frame's slot 0, so a token's tape slot is (t - age)*E.
+        The channel update is `tree_step`'s (its kernels on the card), and
+        it writes the new alpha and age into the carry's."""
         alpha0, hist0, ht, ct = carry
         R = self._n_roots
         neg = NEG_INF
-        hist_in = hist0.clamp_max(254) + 1
-        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist_in,), sen_t,
-                                               self._bands())
-        alpha, ex = self._prune(alpha, ex, la_t)
-        wex, wbp = self._exit_cols(ex, exh)                       # [B, W]
+        tab = self._tree_tab
+        st = tree_step.step_exits(alpha0, hist0, rows_t, tab)
+        wex, wbp = self._exit_cols(st.ex, st.exh)                 # [B, W]
+        if self.prune:
+            wex = torch.where(wex > st.best[:, None] + self.log_wbeam, wex,
+                              neg)
         vals, ok, h2, _ = self._tree_exits(t, valid_t, tape, wex, wbp, ht,
                                            ct)
 
         # ---- single best re-entry, into every root ----
         ent = torch.where(ok[:, 0], vals[:, 0], neg)              # [B]
-
-        # ---- within-word propagation with the telescoping smear ----
-        pc = self._prev_chan_c
-        prop = torch.where(self._has_prev,
-                           ex[:, pc] + self._pip32 + self._la_delta_c, neg)
-        bsh = torch.where(self._has_prev, exh[:, pc], 255)
-        entry_base = ent[:, None] + self._la_entry_c
+        corr = None
         if self.use_bgla:
             # Per-history bigram correction at the roots, recorded for the
             # exact cancellation at the exit readout (0 on padded frames,
@@ -931,14 +949,9 @@ class NgramSearch(nn.Module):
             corr = self._bgla_rows(h2[:, 0])                      # [B, R]
             ct.index_copy_(1, t * R + self._ar_ct,
                            torch.where(valid_t[:, None], corr, 0.0))
-            entry_base[:, self._roots] += corr
-        ie = self._is_entry
-        alpha, (hist,) = hmm_enter(
-            alpha, (hist,), torch.where(ie, entry_base, prop),
-            (torch.where(ie, 0, bsh).to(torch.uint8),))
-        vm = valid_t[:, None, None]
-        return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
-                ht, ct)
+        alpha0, hist0 = tree_step.prune_enter(alpha0, hist0, st, ent, corr,
+                                              la_t, valid_t, tab)
+        return alpha0, hist0, ht, ct
 
     def _step_tree_copies(self, carry, sen_t, t, valid_t, tape,
                           la_t=None):
@@ -1006,15 +1019,19 @@ class NgramSearch(nn.Module):
     # ------------------------------------------------------------------
     def _block_len(self, B: int, n: int) -> int:
         """Frames a block of a scan of n frames at batch B: the largest
-        divisor of gcd(n, FRAME_BUCKET) whose expanded senone scores (the
-        static and tree steps) fit in EXPAND_BLOCK_BYTES.  A batch (n a
-        multiple of FRAME_BUCKET) and a stream's chunk (n = CHUNK) so run
-        whole blocks of one length: one captured graph a shape."""
+        divisor of gcd(n, FRAME_BUCKET) whose senone scores fit in
+        EXPAND_BLOCK_BYTES: for the static step and the tree copies
+        expanded to every channel, for the one-copy tree step its
+        senone-sequence rows (each with the composite rows' members).  A
+        batch (n a multiple of FRAME_BUCKET) and a stream's chunk (n =
+        CHUNK) so run whole blocks of one length: one captured graph a
+        shape."""
         base = math.gcd(n, self.FRAME_BUCKET)
         cap = base
         if self._fast:
             g = self.graph
-            per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4 * B
+            rows = g.n_xs if self._tree and self.nlextree == 1 else g.n_chan
+            per_frame = (rows * g.n_emit_state + g.comp_mem.size) * 4 * B
             cap = min(cap, EXPAND_BLOCK_BYTES // per_frame)
         return max(d for d in range(1, max(1, cap) + 1) if base % d == 0)
 
@@ -1032,15 +1049,18 @@ class NgramSearch(nn.Module):
         (valid [B, K]; the lookahead la [B, K, n_ci] or None) through the
         graph's frame step, the frame index t a 0-d int64 tensor advanced
         on the device; writes row k of the block's tape [B, K, E(, Vr)]
-        for frame t+k and returns the carry.  The static and tree steps
-        expand the block's senones first (the expansion is elementwise,
-        so the block changes no result).  Nothing here reads a device
-        value on the host, so the block can be captured."""
+        for frame t+k and returns the carry.  The static step and the tree
+        copies expand the block's senones first, the one-copy tree step
+        takes the block's senone-sequence rows (both elementwise, so the
+        block changes no result).  Nothing here reads a device value on
+        the host, so the block can be captured."""
         if not self._fast:
             step, sen = self._step_mpx, scores.unbind(1)
+        elif self._tree and self.nlextree == 1:
+            step = self._step_tree
+            sen = self._xs_rows(scores.transpose(0, 1).contiguous())
         else:
             step = (self._step_static if not self._tree else
-                    self._step_tree if self.nlextree == 1 else
                     self._step_tree_copies)
             sen = self._expand_block(scores)
         for k in range(scores.shape[1]):

@@ -24,22 +24,19 @@ loop's geometry.
 
 The kernel is compiled with nvcc for sm_90a at first use into `build/` at
 the repository root (git-ignored), named by a hash of its source, and
-loaded with ctypes.  Nothing is compiled when this module is imported.
+loaded with ctypes (`cuda_libs`, with the port's other hand-written
+library in the same parallel step).  Nothing is compiled when this module
+is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import time
 from dataclasses import dataclass
 
 import torch
+
+from . import cuda_libs
 
 PRECISIONS = ("highest", "high", "bf16")
 _MODE = {"highest": 0, "high": 1, "bf16": 2}
@@ -52,14 +49,7 @@ PAD_CONST = -1e30
 NARROW_DP = 128
 CHUNK_DP = 32
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_gmm.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-# The source's units: one a precision mode (its kernels), and the C entry
-# points; compiled in parallel, then linked into one library.
-UNITS = [[f"-DK1_MODE={m}"] for m in range(len(PRECISIONS))] + [[]]
+LIBRARY = "fused_gmm"
 
 # Frames per chunk of the plain version are chosen so one chunk's [rows,
 # S*K] density matrix stays near this many bytes.  Chunking bounds memory
@@ -69,60 +59,14 @@ _REF_CHUNK_BYTES = 512 << 20
 _lib = None
 
 
-def nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          + repr(UNITS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libfused_gmm-{digest}.so"
-
-
-def _compile(units, workdir: str) -> tuple:
-    """Compile the source's units into objects in `workdir`, all nvcc
-    processes at once: (object paths, the compiler's report)."""
-    objs = [os.path.join(workdir, f"unit{i}.o") for i in range(len(units))]
-    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, *u, "-c", "-o", o,
-                               str(SOURCE)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for u, o in zip(units, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    failed = [(u, log) for u, p, log in zip(units, procs, logs)
-              if p.returncode]
-    if failed:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                           + "".join(f"{u}:\n{log}\n" for u, log in failed))
-    return objs, "".join(logs)
-
-
 def build() -> float:
-    """Compile the kernel (if this source was not built yet) and load it.
-    Returns the seconds spent compiling (0.0 when the library existed).
-    The compiler's report (ptxas registers, spills) goes to `<library>.log`."""
+    """Compile the kernel, with the port's other libraries (if any of them
+    was not built yet), and load it.  Returns the seconds spent compiling
+    (0.0 when every library existed)."""
     global _lib
-    so = library_path()
-    spent = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-            objs, log = _compile(UNITS, work)
-            tmp = os.path.join(work, so.name)
-            r = subprocess.run([nvcc(), "-shared", "-o", tmp, *objs],
-                               capture_output=True, text=True)
-            if r.returncode:
-                raise RuntimeError(f"nvcc failed to link {SOURCE.name}:\n"
-                                   f"{r.stdout}\n{r.stderr}")
-            so.with_suffix(".log").write_text(log + r.stdout + r.stderr)
-            os.replace(tmp, so)
-        spent = time.perf_counter() - t0
+    spent = cuda_libs.build_all()
     if _lib is None:
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(cuda_libs.library_path(LIBRARY)))
         lib.fused_gmm_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
             + [ctypes.c_void_p])

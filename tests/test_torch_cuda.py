@@ -1,7 +1,8 @@
 """The port on the GPU: kernel K1 against its plain version, a
 one-utterance decode through it, the other scorers, the frontend, the
 Decoder, the LM backends, the large-vocabulary searches, the streaming
-decode and the lattice results on the card against their CPU runs, K1 on
+decode and the lattice results on the card against their CPU runs, the
+one-copy tree step's two kernels against their plain version, K1 on
 senone shards against the unsharded call, `tools fe` on the card
 against `-platform cpu`, every search's frame loop through captured
 CUDA graphs against its eager blocks (bit-equal), and the frame loop's
@@ -48,6 +49,7 @@ from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
 from cmusphinx_tpu_torch.train import bw
 from cmusphinx_tpu_torch.train.sentence_hmm import FlatModel
 from cmusphinx_tpu_torch.train.trainer import Trainer
+from test_torch_tree_step import planted
 
 pytestmark = pytest.mark.cuda
 
@@ -1096,6 +1098,134 @@ def test_frame_loop_span_holds_its_graph_kernels(cuda, tmp_path):
     assert graph_launch and kernels
     assert l0 < min(kernels)
     assert s.graph_stats["captures"] == len(caps)
+
+
+# ---- the one-copy tree step's kernels (ops/tree_step.py) -------------------
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(a, b):
+    return all(x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+               for x, y in zip(a, b, strict=True))
+
+
+def _held_to_plain(monkeypatch):
+    """Make every call of the tree step's two kernels also run their plain
+    version on the card, on copies of the same inputs, and assert the
+    results bit-equal; returns the calls' log (valid rows of each
+    `prune_enter`)."""
+    from cmusphinx_tpu_torch.ops import tree_step
+    kernel_a, kernel_b = tree_step.step_exits, tree_step.prune_enter
+    log = []
+
+    def step_exits(alpha0, hist0, rows, tab):
+        got = kernel_a(alpha0, hist0, rows, tab)
+        assert _same_bits(got, tree_step.step_exits_ref(alpha0, hist0, rows,
+                                                        tab))
+        return got
+
+    def prune_enter(alpha0, hist0, st, ent, corr, la_t, valid, tab):
+        want = tree_step.prune_enter_ref(alpha0.clone(), hist0.clone(), st,
+                                         ent, corr, la_t, valid, tab)
+        got = kernel_b(alpha0, hist0, st, ent, corr, la_t, valid, tab)
+        assert _same_bits(got, want)
+        log.append(valid.cpu())
+        return got
+
+    monkeypatch.setattr(tree_step, "step_exits", step_exits)
+    monkeypatch.setattr(tree_step, "prune_enter", prune_enter)
+    return log
+
+
+@pytest.mark.parametrize("kw", [{}, {"treela": "ug"}, {"prune": False},
+                                {"treela": "ug", "prune": False},
+                                {"pl_window": 3}])
+def test_tree_step_kernels_bit_equal_to_plain_on_decodes(cuda, kw,
+                                                         monkeypatch):
+    """The MEDIUM tree fixture decoded on the card, eager: at every frame
+    the two kernels' results (the stepped alpha, ages, exits and best
+    scores; the new carry) equal the plain version's bit for bit, rows past
+    an utterance's end (not valid) included, with the bigram and the
+    unigram lookahead, the beams on and off, and the phone-loop
+    lookahead."""
+    fx = fixture.build(0, size=fixture.MEDIUM)
+    s = _card_search(cuda, fx, lexmode="tree", **kw)
+    log = _held_to_plain(monkeypatch)
+    s._graphs = False
+    s.decode_batch_cep(fx.ceps, FeatPipeline(fx.feat_config(), device=cuda))
+    torch.cuda.synchronize()
+    valid = torch.stack(log)
+    assert len(log) == s._last_batch[0][0].shape[1] // s.E
+    assert valid.any() and not valid.all()
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5])
+def test_tree_step_kernels_bit_equal_to_plain_on_planted_ties(cuda, S):
+    """Both kernels against their plain version on the card, bit for bit,
+    on `planted` inputs (ties in the exits and in every transition,
+    channels at NEG_INF, ages 254 and 255, one row not valid), with the
+    beams on and off, with and without the bigram corrections and the
+    phone-loop lookahead (taken as a strided slice, as a block passes
+    it)."""
+    from cmusphinx_tpu_torch.ops import tree_step
+    B, C, n_xs, R, n_ci = 4, 3001, 257, 37, 11
+    alpha, ages, rows, tab, ent, corr, la = (
+        x.to(cuda) if isinstance(x, torch.Tensor) else x
+        for x in planted(S, C, B, n_xs, R, n_ci, S))
+    tab = tree_step.Tables(*(x.to(cuda) if isinstance(x, torch.Tensor)
+                             else x for x in tab[:8]),
+                           tuple(b.to(cuda) for b in tab.bands), *tab[9:])
+    valid = torch.tensor([True, False, True, True], device=cuda)
+    got = tree_step.step_exits(alpha, ages, rows, tab)
+    want = tree_step.step_exits_ref(alpha, ages, rows, tab)
+    assert _same_bits(got, want)
+    # The planted ties are there: the exits and the transitions tie.
+    s = alpha + rows[:, tab.xs]
+    if S >= 2:
+        e_l = s[..., -1] + tab.bands[3]
+        assert (e_l == s[..., -2] + tab.bands[4]).sum() > 100
+        assert (s[..., 1:] + tab.bands[0][:, 1:]
+                == s[..., :-1] + tab.bands[1]).sum() > 100
+    assert (want.hist == 255).any() and (ages == 254).any()
+    la_block = torch.stack([la, la], 1)[:, 1]             # strided rows
+    for prune, c, l in [(True, corr, la_block), (True, None, None),
+                        (False, corr, None), (False, None, la_block)]:
+        t = tab._replace(prune=prune)
+        outs = []
+        for fn in (tree_step.prune_enter, tree_step.prune_enter_ref):
+            a0, h0 = alpha.clone(), ages.clone()
+            outs.append(fn(a0, h0, got, ent, c, l, valid, t))
+        assert _same_bits(outs[0], outs[1])
+        assert _same_bits((outs[0][0][1], outs[0][1][1]), (alpha[1], ages[1]))
+        assert not torch.equal(outs[0][0], alpha)
+
+
+def test_tree_step_launches_two_a_frame_across_replays(cuda):
+    """`tree_step.launches`, a counter of the N-gram search's block runner:
+    two launches (one of each kernel) a padded frame step of the batch,
+    in the first decode (which captures its graphs), in the next (which
+    only replays them) and eager."""
+    from cmusphinx_tpu_torch.ops import tree_step
+    fx = fixture.build(0, size=fixture.MEDIUM)
+    s = _card_search(cuda, fx, lexmode="tree")
+    fp = FeatPipeline(fx.feat_config(), device=cuda)
+    counts = []
+    for graphs in (True, True, False):
+        s._graphs = graphs
+        tree_step.launches.clear()
+        n = s.graph_stats["captures"]
+        s.decode_batch_cep(fx.ceps, fp)
+        torch.cuda.synchronize()
+        frames = s._last_batch[0][0].shape[1] // s.E
+        counts.append((dict(tree_step.launches), frames,
+                       s.graph_stats["captures"] - n))
+    s._graphs = True
+    (first, F, caps), (second, F2, caps2), (eager, F3, _) = counts
+    assert F == F2 == F3 > 0 and caps > 0 and caps2 == 0
+    for c in (first, second, eager):
+        assert c == {"step_exits": F, "prune_enter": F}
 
 
 _FAILED_CAPTURE = """

@@ -241,7 +241,8 @@ def test_default_blocks_cover_a_batch_and_a_chunk(small, medium,
                                                   monkeypatch):
     """`_block_len`: the mpx step runs the batch's 100-frame bucket and a
     stream's 50-frame chunk as one block; the static and tree steps hold
-    at most EXPAND_BLOCK_BYTES of expanded scores a block, in a length
+    at most EXPAND_BLOCK_BYTES of senone scores a block (the one-copy
+    tree its senone-sequence rows, not their expansion), in a length
     that divides the bucket and the chunk, so that no batch or chunk has
     a shorter last block.  `_side_frames`: the side-tables hold the
     bucket times a power of two."""
@@ -252,7 +253,7 @@ def test_default_blocks_cover_a_batch_and_a_chunk(small, medium,
     assert s._block_len(1, s.CHUNK) == s.CHUNK
     t = _search(medium, {"lexmode": "tree"})
     g = t.graph
-    per_frame = (g.n_chan * g.n_emit_state + g.comp_mem.size) * 4
+    per_frame = (g.n_xs * g.n_emit_state + g.comp_mem.size) * 4
     for B in (1, 4, 16):
         cap = ngram_search.EXPAND_BLOCK_BYTES // (per_frame * B)
         for n in (100, 600, 1700, t.CHUNK):

@@ -483,9 +483,12 @@ def _modules(package: str) -> set:
 def test_port_has_every_module_of_the_reference():
     """The two packages' module lists differ only by the port's own
     additions and the Pallas kernel's module, whose port is
-    `ops/fused_gmm` with its CUDA source."""
+    `ops/fused_gmm` with its CUDA source (`ops/tree_step`'s kernels port
+    no TPU kernel: the reference's tree step was XLA-compiled jnp;
+    `ops/cuda_libs` builds both libraries)."""
     ref, port = _modules("cmusphinx_tpu"), _modules("cmusphinx_tpu_torch")
     assert ref - port == {"ops/pallas_gmm"}
     assert port - ref == {"convert", "fixture", "decode/graphs",
-                          "decode/results", "ops/fused_gmm",
-                          "parallel/dryrun", "parallel/senone_shard"}
+                          "decode/results", "ops/cuda_libs",
+                          "ops/fused_gmm", "ops/tree_step", "parallel/dryrun",
+                          "parallel/senone_shard"}
