@@ -36,7 +36,7 @@ class Check:
     def __init__(self, model_kw: Dict[str, str], cfg: dict, device):
         self.device = str(device)
         self.model = ref_model.read_model(model_kw["hmm"], model_kw["lm"],
-                                          model_kw["dict"])
+                                          model_kw["dict"], cfg["model"])
         self.scorer = ref_scores.reference_scorer(self.model, self.device)
         dec = cfg.get("decoder", {})
         self.words = ref_hyps.WordChecker(self.model, dec.get("lw", 6.5),

@@ -4,12 +4,12 @@ planted faults at a cell's own size, one set-up a seed, in one process.
     python3 portbench/control.py --workload <cell> --seeds 11,12,13 \
         --seconds 5 --mode tf32|highest|high|bf16|sound|<fault>
 
-`tf32`: the reference's scorer computed in TF32 (`reference/scores.py`)
-put in the program's place; `high`, `bf16`: the program's own lower
--gmmprec paths; `sound`: the program as the configuration states it;
-a fault of `faults.py`: that fault planted.  Prints one JSON line a seed:
-the check's numbers and the run's `correct`.  The benchmark's own runs do
-not run this.
+`tf32`: the reference's scorer of the configuration's kind
+(`kinds/<model>.py`) computed in TF32, put in the program's place; `high`,
+`bf16`: the program's own lower -gmmprec paths; `sound`: the program as
+the configuration states it; a fault of `faults.py`: that fault planted.
+Prints one JSON line a seed: the check's numbers and the run's `correct`.
+The benchmark's own runs do not run this.
 """
 
 import argparse
@@ -36,10 +36,10 @@ from portbench.reference import scores as ref_scores  # noqa: E402
 class ControlScorer(nn.Module):
     """The reference's scorer in a lower precision, in the program's place."""
 
-    def __init__(self, dec, precision: str):
+    def __init__(self, dec, kind: str, precision: str):
         super().__init__()
-        hmm = dec.config["hmm"]
-        m = ref_model.read_model(hmm, dec.config["lm"], dec.config["dict"])
+        m = ref_model.read_model(dec.config["hmm"], dec.config["lm"],
+                                 dec.config["dict"], kind)
         self.ref = ref_scores.reference_scorer(m, str(dec.device), precision)
 
     def score(self, feats: torch.Tensor) -> torch.Tensor:
@@ -53,7 +53,7 @@ class ControlScorer(nn.Module):
 
 def options(mode: str) -> dict:
     if mode == "tf32":
-        return {"scorer": lambda dec: ControlScorer(dec, "tf32")}
+        return {"scorer": lambda dec, kind: ControlScorer(dec, kind, "tf32")}
     if mode in ("highest", "high", "bf16"):
         return {"decoder_args": {"gmmprec": mode}}
     if mode == "sound":

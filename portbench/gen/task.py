@@ -11,9 +11,8 @@ program changes:
   group; Bakis transition matrices with one skip;
 - a dictionary of multi-phone words and a trigram LM estimated on seeded
   sentences of a sparse bigram chain (`lm.py`);
-- the acoustic model: `cont` (one codebook of K Gaussians a senone over
-  the 39-dim `1s_c_d_dd` features, float mixture weights) or `semi` (one
-  codebook of 256 Gaussians a stream, 3 streams of 13, 8-bit sendump);
+- the acoustic model, which the configuration's kind draws and writes
+  (`kinds/<model>.py`);
 - a pool of utterances along sentences of the LM: each state of the
   sentence's triphone sequence (silence at both ends) held 3-8 frames, each
   frame's static cepstra near a Gaussian that the senone weights heavily.
@@ -35,11 +34,12 @@ import dataclasses
 import math
 import os
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import kinds
 from .lm import ArpaLM, train_lm
 
 CMU_PHONES = ("AA AE AH AO AW AY B CH D DH EH ER EY F G HH IH IY JH K L M N "
@@ -48,33 +48,28 @@ N_STATE = 3
 NCEP = 13
 LOG_ZERO = -1.0e30
 SENSCR_SHIFT = 10
-# Feature streams of the semi-continuous model (-svspec 0-12/13-25/26-38).
-SEMI_STREAMS = [list(range(0, 13)), list(range(13, 26)), list(range(26, 39))]
-_BASE_FEAT = {"ceplen": NCEP, "cmn": "current", "agc": "none"}
-FEAT_PARAMS = {
-    "cont": {"feat": "1s_c_d_dd", **_BASE_FEAT},
-    "semi": {"feat": "1s_c_d_dd", "svspec": "0-12/13-25/26-38", **_BASE_FEAT},
-}
-# Frontend parameters of hub4wsj_sc_8k's feat.params.
-SEMI_FE_PARAMS = {"nfilt": 20, "lowerf": 1, "upperf": 4000,
-                  "transform": "dct", "cmninit": "56,-3,1"}
+# The feat.params lines every kind shares.
+BASE_FEAT = {"ceplen": NCEP, "cmn": "current", "agc": "none"}
 
 
 @dataclass(frozen=True)
 class Size:
+    """The structure's sizes, which every kind shares, and in `own` the
+    kind's own keys of the configuration's `size` (its `SIZE_KEYS`)."""
     n_phone: int          # CI phones besides SIL
     n_sen: int            # senones (S)
-    n_density: int        # Gaussians a senone (K), continuous model
-    n_density_semi: int   # Gaussians a stream, semi-continuous model
     n_word: int
     pron_len: Tuple[int, int]      # phones a word, inclusive
     n_sent: int                    # LM training sentences
     sent_len: Tuple[int, int]      # words a sentence, inclusive
+    own: Dict[str, int] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: dict) -> "Size":
-        return cls(**{k: tuple(v) if isinstance(v, list) else v
-                      for k, v in d.items()})
+        d = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+        shared = {f.name for f in dataclasses.fields(cls)} - {"own"}
+        return cls(**{k: v for k, v in d.items() if k in shared},
+                   own={k: v for k, v in d.items() if k not in shared})
 
 
 @dataclass
@@ -82,14 +77,13 @@ class Acoustic:
     means: np.ndarray     # [n_mgau, n_feat, K, maxlen] float32
     var: np.ndarray       # the same, floored at 1e-4
     veclen: List[int]
-    ln_mixw: np.ndarray   # [S, K] (cont) or [n_feat, K, S] (semi), float32
+    ln_mixw: np.ndarray   # float32, in the layout of the kind's writer
     emit: Callable[[np.random.RandomState, int, int], np.ndarray]
-    sendump_bits: int = 0
 
 
 @dataclass
 class Task:
-    model: str
+    model: str                        # the kind's name
     size: Size
     phones: List[str]                 # CI phone names, SIL last
     mdef_lines: List[str]
@@ -136,15 +130,28 @@ def with_seed(struct: Task, seed: int, lengths: Sequence[int]) -> Task:
 
 def _acoustic(struct: Task, rng: np.random.RandomState,
               lengths: Sequence[int]) -> Task:
-    am = (_continuous if struct.model == "cont" else _semi)(rng, struct.size)
+    kind = _kind(struct.model, struct.size)
+    am = kind.acoustic(rng, struct.size, struct)
     task = dataclasses.replace(struct, am=am, ceps=[], transcripts=[])
     _pool(task, rng, lengths)
     return task
 
 
+def _kind(model: str, size: Size):
+    """The kind `model`, whose own size keys `size` has to hold: all of
+    them and no other."""
+    kind = kinds.load(model)
+    missing = [k for k in kind.SIZE_KEYS if k not in size.own]
+    other = sorted(set(size.own) - set(kind.SIZE_KEYS))
+    if missing or other:
+        raise ValueError(f"the {model} kind's size keys are "
+                         f"{list(kind.SIZE_KEYS)}: missing {missing}, "
+                         f"not its own {other}")
+    return kind
+
+
 def _structure(rng: np.random.RandomState, model: str, size: Size) -> Task:
-    if model not in ("cont", "semi"):
-        raise ValueError(f"model must be cont or semi, got {model!r}")
+    _kind(model, size)
     phones = CMU_PHONES[: size.n_phone]
     ci_names = phones + ["SIL"]
     n_ci = len(ci_names)
@@ -261,70 +268,29 @@ def _pool(task: Task, rng: np.random.RandomState, lengths: Sequence[int]
 
 
 # ----------------------------------------------------------------------
-# Acoustic models.  `emit(rng, s, n)` draws n frames of 13 static
-# cepstra from senone s.
+# What the kinds' acoustic models share.  A model's `emit(rng, s, n)` draws
+# n frames of 13 static cepstra from senone s.
 
-def _floored(var: np.ndarray) -> np.ndarray:
+def floored(var: np.ndarray) -> np.ndarray:
     return np.maximum(var.astype(np.float32), 1e-4).astype(np.float32)
 
 
-def _ln_weights(w: np.ndarray) -> np.ndarray:
+def ln_weights(w: np.ndarray) -> np.ndarray:
+    """ln of weights [..., K] as a reader computes them from the float32
+    values a mixture_weights file holds."""
     w = w.astype(np.float32).astype(np.float64)
     w = np.maximum(w / w.sum(-1, keepdims=True), 1e-7)
     return np.log(w).astype(np.float32)
 
 
-def _continuous(rng, size: Size) -> Acoustic:
-    S, K, D = size.n_sen, size.n_density, 3 * NCEP
-    center = rng.normal(0.0, 1.5, (S, NCEP))
-    means = np.empty((S, 1, K, D), np.float32)
-    means[:, 0, :, :NCEP] = center[:, None, :] + rng.normal(0, 0.3, (S, K, NCEP))
-    means[:, 0, :, NCEP:] = rng.normal(0.0, 0.1, (S, K, 2 * NCEP))
-    var = np.empty((S, 1, K, D), np.float32)
-    var[..., :NCEP] = rng.uniform(0.2, 0.6, (S, 1, K, NCEP))
-    var[..., NCEP:2 * NCEP] = rng.uniform(1.0, 3.0, (S, 1, K, NCEP))
-    var[..., 2 * NCEP:] = rng.uniform(2.0, 6.0, (S, 1, K, NCEP))
-    mixw = rng.dirichlet(np.full(K, 2.0), size=S)
-
-    def emit(rng, s, n):
-        k = rng.choice(K, size=n, p=mixw[s])
-        return means[s, 0, k, :NCEP] + rng.normal(0.0, 0.25, (n, NCEP))
-
-    return Acoustic(means, _floored(var), [D], _ln_weights(mixw), emit)
-
-
-def _peaked(rng, n_sen: int, K: int, pick: int) -> np.ndarray:
+def peaked(rng, n_sen: int, K: int, pick: int) -> np.ndarray:
+    """Weights [n_sen, K]: each row puts 0.999 of its mass on `pick`
+    codewords (Dirichlet(2) among them) and spreads the rest evenly."""
     w = np.full((n_sen, K), 0.001 / K)
     for s in range(n_sen):
         ks = rng.choice(K, size=pick, replace=False)
         w[s, ks] += 0.999 * rng.dirichlet(np.full(pick, 2.0))
     return w
-
-
-def _semi(rng, size: Size) -> Acoustic:
-    S, K = size.n_sen, size.n_density_semi
-    lens = [len(x) for x in SEMI_STREAMS]
-    L = max(lens)
-    cw = rng.normal(0.0, 1.5, (K, NCEP))            # codeword cepstra
-    means = np.zeros((1, len(lens), K, L), np.float32)
-    var = np.zeros_like(means)
-    means[0, 0, :, :lens[0]] = cw
-    var[0, 0, :, :lens[0]] = rng.uniform(0.2, 0.6, (K, lens[0]))
-    for f, ln in enumerate(lens[1:], 1):
-        means[0, f, :, :ln] = rng.normal(0.0, 2.0, (K, ln))
-        var[0, f, :, :ln] = rng.uniform(1.0, 4.0, (K, ln))
-    w0 = _peaked(rng, S, K, 3)
-    ws = [w0] + [rng.dirichlet(np.full(K, 50.0), size=S) for _ in lens[1:]]
-    ln_mixw = np.log(np.stack(ws)).transpose(0, 2, 1)     # [F, K, S]
-    p0 = w0 / w0.sum(-1, keepdims=True)
-
-    def emit(rng, s, n):
-        k = rng.choice(K, size=n, p=p0[s])
-        return cw[k] + rng.normal(0.0, 0.25, (n, NCEP))
-
-    return Acoustic(means, _floored(var), lens,
-                    np.ascontiguousarray(ln_mixw, np.float32), emit,
-                    sendump_bits=8)
 
 
 # ----------------------------------------------------------------------
@@ -335,7 +301,7 @@ def _s3_header(fh) -> None:
     fh.write(np.array([0x11223344], dtype="<u4").tobytes())
 
 
-def _write_gauden(path: str, a: np.ndarray, veclen: List[int]) -> None:
+def write_gauden(path: str, a: np.ndarray, veclen: List[int]) -> None:
     n_mgau, n_feat, K, _ = a.shape
     data = np.concatenate([a[:, f, :, :ln].reshape(n_mgau, -1)
                            for f, ln in enumerate(veclen)], axis=1)
@@ -346,14 +312,14 @@ def _write_gauden(path: str, a: np.ndarray, veclen: List[int]) -> None:
         fh.write(data.astype("<f4").tobytes())
 
 
-def _write_s3_array(path: str, dims: List[int], data: np.ndarray) -> None:
+def write_s3_array(path: str, dims: List[int], data: np.ndarray) -> None:
     with open(path, "wb") as fh:
         _s3_header(fh)
         fh.write(np.asarray([*dims, data.size], "<i4").tobytes())
         fh.write(np.ascontiguousarray(data).astype("<f4").tobytes())
 
 
-def _write_sendump8(path: str, ln_mixw: np.ndarray,
+def write_sendump8(path: str, ln_mixw: np.ndarray,
                     logbase: float = 1.0001) -> None:
     """8-bit sendump of ln weights [n_feat, K, S]: bytes (-log_b w) >> 10,
     clamped to 159 (the reference's MAX_NEG_MIXW)."""
@@ -385,27 +351,22 @@ STRUCTURE_FILES = ("hmm/mdef", "hmm/transition_matrices", "hmm/feat.params",
 
 def write_model_dir(task: Task, path: str) -> Dict[str, str]:
     """Write the task's model directory `path/hmm` (mdef, means, variances,
-    transition_matrices, mixture_weights or sendump, feat.params,
-    noisedict), `path/lm.arpa` and `path/words.dict`.  Returns the
-    Decoder's keyword arguments {"hmm", "lm", "dict"}."""
+    transition_matrices, the kind's weight files, feat.params, noisedict),
+    `path/lm.arpa` and `path/words.dict`.  Returns the Decoder's keyword
+    arguments {"hmm", "lm", "dict"}."""
     write_structure(task, path)
     return write_weights(task, path)
 
 
 def write_weights(task: Task, path: str) -> Dict[str, str]:
-    """The seed's files of the model directory: means, variances and
-    mixture_weights or sendump.  Returns the Decoder's keyword arguments."""
+    """The seed's files of the model directory: means, variances and the
+    kind's weight files.  Returns the Decoder's keyword arguments."""
     hmm = os.path.join(path, "hmm")
     os.makedirs(hmm, exist_ok=True)
     am = task.am
-    _write_gauden(os.path.join(hmm, "means"), am.means, am.veclen)
-    _write_gauden(os.path.join(hmm, "variances"), am.var, am.veclen)
-    if task.model == "semi":
-        _write_sendump8(os.path.join(hmm, "sendump"), am.ln_mixw)
-    else:
-        w = np.exp(am.ln_mixw.astype(np.float64))[:, None, :]
-        _write_s3_array(os.path.join(hmm, "mixture_weights"),
-                        list(w.shape), w)
+    write_gauden(os.path.join(hmm, "means"), am.means, am.veclen)
+    write_gauden(os.path.join(hmm, "variances"), am.var, am.veclen)
+    kinds.load(task.model).write_weights(am, hmm)
     return {"hmm": hmm, "lm": os.path.join(path, "lm.arpa"),
             "dict": os.path.join(path, "words.dict")}
 
@@ -419,11 +380,9 @@ def write_structure(task: Task, path: str) -> None:
     log_tp = np.where(task.tp > 0, np.log(np.maximum(task.tp, 1e-37)),
                       LOG_ZERO).astype(np.float32)
     tp = np.where(log_tp > LOG_ZERO / 2, np.exp(log_tp), 0.0)
-    _write_s3_array(os.path.join(hmm, "transition_matrices"),
+    write_s3_array(os.path.join(hmm, "transition_matrices"),
                     list(tp.shape), tp)
-    params = dict(FEAT_PARAMS[task.model])
-    if task.model == "semi":
-        params.update(SEMI_FE_PARAMS)
+    params = kinds.load(task.model).FEAT_PARAMS
     with open(os.path.join(hmm, "feat.params"), "w") as fh:
         fh.writelines(f"-{k} {v}\n" for k, v in params.items())
     with open(os.path.join(hmm, "noisedict"), "w") as fh:

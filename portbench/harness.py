@@ -4,7 +4,9 @@ measure the window, check what it produced against the plain reference,
 and read the cell's metrics.
 
 Everything the run is made of is found by name from `BENCHMARK.json`:
-a cell's configuration `configs/<config>.json`, its mix
+a cell's configuration `configs/<config>.json`, its acoustic-model kind
+`kinds/<model>.py` (the configuration's "model": its generator, weight
+files, reference scorer, score shape and counts), its mix
 `traffic/<mix>.json`, and each metric's reader `metrics/<metric>.py`
 (a `read(run)` that returns the number or None where it finds nothing to
 read).
@@ -14,7 +16,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import math
 import os
@@ -28,7 +29,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import drive, traffic
+from . import byname, drive, kinds, traffic
 from . import trace as trace_mod
 from .check import Check
 from .gen import task as gen_task
@@ -61,16 +62,8 @@ def mix_path(root: str, spec: dict, mix: str) -> str:
     return os.path.join(root, spec["paths"][0], "traffic", mix + ".json")
 
 
-def reader_path(root: str, spec: dict, metric: str) -> str:
-    return os.path.join(root, spec["paths"][0], "metrics", metric + ".py")
-
-
-def load_reader(path: str) -> Callable:
-    name = "portbench_metric_" + os.path.basename(path)[:-3].replace(".", "_")
-    sp = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(sp)
-    sp.loader.exec_module(mod)
-    return mod.read
+def reader(metric: str) -> Callable:
+    return byname.load("metrics", metric).read
 
 
 def cell_metrics(spec: dict, cell: str, trace: bool) -> List[dict]:
@@ -87,17 +80,21 @@ def cell_metrics(spec: dict, cell: str, trace: bool) -> List[dict]:
 
 
 def listing(bench_path: str) -> List[str]:
-    """Every cell with its configuration and mix files and the readers of
-    its metrics, as the harness resolves them."""
+    """Every cell with its configuration, mix and kind files and the
+    readers of its metrics, as the harness resolves them."""
     spec, root = load_spec(bench_path), root_of(bench_path)
     lines = []
     for w in spec["workloads"]:
         cfg = find(spec, "configs", w["config"])
+        with open(os.path.join(root, cfg["file"])) as fh:
+            kind = kinds.path(json.load(fh)["model"])
         lines.append(f"cell {w['name']}: {cfg['file']} "
-                     f"{os.path.relpath(mix_path(root, spec, w['traffic']), root)}")
+                     f"{os.path.relpath(mix_path(root, spec, w['traffic']), root)}"
+                     f" {os.path.relpath(kind, root)}"
+                     f"{'' if os.path.exists(kind) else ' (missing)'}")
         for trace in (False, True):
             for m in cell_metrics(spec, w["name"], trace):
-                p = reader_path(root, spec, m["name"])
+                p = byname.path("metrics", m["name"])
                 lines.append(f"  metric {m['name']}: "
                              f"{os.path.relpath(p, root)}"
                              f"{'' if os.path.exists(p) else ' (missing)'}")
@@ -148,9 +145,10 @@ def model_dir(cfg: dict, seed: int, lengths: List[int]):
 def _structure_dir(cfg: dict, size, sseed: int) -> str:
     """The configuration's structure: its files and the structure itself
     (`structure.pkl`, without the LM, which its file holds)."""
+    shared = (getattr(size, f.name) for f in dataclasses.fields(size)
+              if f.name != "own")
     key = f"{cfg['name']}-{sseed}-" + "-".join(
-        f"{v[0]}_{v[1]}" if isinstance(v, tuple) else str(v)
-        for v in dataclasses.astuple(size))
+        f"{v[0]}_{v[1]}" if isinstance(v, tuple) else str(v) for v in shared)
     sdir = os.path.join(CACHE, "models", "structure", key)
     if not os.path.exists(os.path.join(sdir, "done")):
         shutil.rmtree(sdir, ignore_errors=True)
@@ -195,17 +193,6 @@ class Run:
     slice: tuple = (0.0, 0.0)          # the traced slice, trace time (s)
 
 
-def score_shape(decoder, cfg: dict) -> dict:
-    """The scorer's shapes, for the operation and byte counts."""
-    sc = decoder.scorer
-    if cfg["model"] == "cont":
-        return {"kind": "cont", "S": int(sc.n_sen), "K": int(sc.n_density),
-                "D": int(sc.lin.shape[2])}
-    return {"kind": "semi", "S": int(sc.n_sen), "K": int(sc.n_density),
-            "veclens": [len(s) for s in decoder.fp.stream_slices()],
-            "topn": int(sc.topn)}
-
-
 @dataclass
 class Result:
     line: dict
@@ -219,8 +206,9 @@ def run_cell(bench_path: str, cell_name: str, seed: int, seconds: float,
              scorer: Optional[Callable] = None,
              decoder_args: Optional[dict] = None,
              log=lambda s: print(s, file=sys.stderr, flush=True)) -> Result:
-    """One run.  `patch(decoder)` (tests: a planted fault), `scorer(decoder)`
-    (a scorer to put in the program's place: the control) and
+    """One run.  `patch(decoder)` (tests: a planted fault),
+    `scorer(decoder, kind)` (a scorer to put in the program's place: the
+    control; `kind` the configuration's) and
     `decoder_args` (the control's program paths) are for the checks of the
     check; the benchmark's own runs pass none of them."""
     from cmusphinx_tpu_torch.api import Decoder
@@ -230,6 +218,7 @@ def run_cell(bench_path: str, cell_name: str, seed: int, seconds: float,
     cfg_entry = find(spec, "configs", cell["config"])
     with open(os.path.join(root, cfg_entry["file"])) as fh:
         cfg = json.load(fh)
+    kind = kinds.load(cfg["model"])
     mix = traffic.load(mix_path(root, spec, cell["traffic"]))
 
     kw, ceps, gen_s = model_dir(cfg, seed, traffic.lengths(mix))
@@ -244,7 +233,7 @@ def run_cell(bench_path: str, cell_name: str, seed: int, seconds: float,
                   **{**cfg.get("decoder", {}), **(decoder_args or {})})
     decoder_s = time.perf_counter() - t0
     if scorer is not None:
-        dec.search.scorer = scorer(dec)
+        dec.search.scorer = scorer(dec, cfg["model"])
     tap = drive.Tap(dec.search.scorer)
     dec.search.scorer = tap
     if patch is not None:
@@ -265,7 +254,7 @@ def run_cell(bench_path: str, cell_name: str, seed: int, seconds: float,
     log(f"portbench: setup_s {setup_s:.3f} (the Decoder {decoder_s:.3f}; "
         f"{warm_captures} captures in the warm-up)")
     tap.calls.clear()
-    shape = score_shape(dec, cfg)
+    shape = kind.score_shape(dec)
 
     # ---- the window.
     w = win.run(seconds, prof)
@@ -306,7 +295,7 @@ def run_cell(bench_path: str, cell_name: str, seed: int, seconds: float,
         run.slice = run.trace.span(drive.SLICE_SPAN)
     metrics = {}
     for m in cell_metrics(spec, cell_name, trace):
-        v = load_reader(reader_path(root, spec, m["name"]))(run)
+        v = reader(m["name"])(run)
         if v is not None and math.isfinite(v):
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     dev = {"platform": "gpu" if device == "cuda" else str(device),

@@ -3,6 +3,7 @@
 Written from the Sphinx formats themselves (text mdef, s3 gauden and
 array files, the 8-bit sendump, feat.params, the dictionary, ARPA), in
 numpy and the standard library; they share no code with the program.
+Each kind's weight files are read by its `kinds/<model>.py`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from .. import kinds
 
 LOG10 = math.log(10.0)
 
@@ -196,21 +199,22 @@ def read_arpa(path: str) -> Arpa:
 @dataclass
 class Model:
     """What the reference needs of a model directory."""
-    kind: str                        # "cont" or "semi"
+    kind: str                        # the configuration's kind (`kinds/`)
     mdef: Mdef
     means: List[np.ndarray]          # per stream [n_mgau, K, d]
     var: List[np.ndarray]
     veclen: List[int]
     log_tp: np.ndarray               # [n_tmat, 3, 4] natural log
-    ln_mixw: np.ndarray = None       # cont: [S, K]
-    sendump: np.ndarray = None       # semi: raw bytes [n_feat, K, S]
-    streams: List[List[int]] = None  # semi: feature indices a stream
+    feat_params: Dict[str, str]
+    weights: dict = None             # the kind's `read_weights`
     words: Dict[str, List[str]] = None
     lm: Arpa = None
 
 
-def read_model(hmm: str, lm: str, dic: str, varfloor: float = 1e-4,
-               mixwfloor: float = 1e-7) -> Model:
+def read_model(hmm: str, lm: str, dic: str, kind: str,
+               varfloor: float = 1e-4) -> Model:
+    """The model directory as the configuration's kind reads it: the kind
+    comes from the configuration, never from which files exist."""
     mdef = read_mdef(os.path.join(hmm, "mdef"))
     means, veclen = read_gauden(os.path.join(hmm, "means"))
     var, _ = read_gauden(os.path.join(hmm, "variances"))
@@ -218,16 +222,9 @@ def read_model(hmm: str, lm: str, dic: str, varfloor: float = 1e-4,
     tp = read_s3_array(os.path.join(hmm, "transition_matrices"), 3)
     with np.errstate(divide="ignore"):
         log_tp = np.where(tp > 0, np.log(np.maximum(tp, 1e-300)), -np.inf)
-    params = read_feat_params(os.path.join(hmm, "feat.params"))
-    m = Model(kind="cont", mdef=mdef, means=means, var=var, veclen=veclen,
-              log_tp=log_tp, words=read_dict(dic), lm=read_arpa(lm))
-    if os.path.exists(os.path.join(hmm, "sendump")):
-        m.kind = "semi"
-        m.sendump = read_sendump8(os.path.join(hmm, "sendump"))
-        m.streams = [list(range(int(a), int(b) + 1)) for a, b in
-                     (s.split("-") for s in params["svspec"].split("/"))]
-    else:
-        w = read_s3_array(os.path.join(hmm, "mixture_weights"), 3)[:, 0]
-        w = w / w.sum(-1, keepdims=True)
-        m.ln_mixw = np.log(np.maximum(w, mixwfloor))
+    m = Model(kind=kind, mdef=mdef, means=means, var=var, veclen=veclen,
+              log_tp=log_tp,
+              feat_params=read_feat_params(os.path.join(hmm, "feat.params")),
+              words=read_dict(dic), lm=read_arpa(lm))
+    m.weights = kinds.load(kind).read_weights(hmm, m)
     return m

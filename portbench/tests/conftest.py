@@ -2,8 +2,9 @@
 (`python -m pytest portbench/tests`) but for those marked `cuda`.
 
 `tiny_bench` is a copy of BENCHMARK.json and the harness's data files in a
-temporary root, with tiny cells beside the real ones: `tiny-cont.batch`
-and `tiny-semi.batch` (SMALL-sized models, a pool of 8 utterances)."""
+temporary root, with tiny cells beside the real ones: `tiny-<kind>.batch`
+for each acoustic-model kind of `portbench/kinds/` (SMALL-sized models,
+`data/tiny-<kind>.json`, a pool of 8 utterances)."""
 
 import json
 import os
@@ -24,26 +25,37 @@ def pytest_configure(config):
         "torch.cuda.is_available() is false")
 
 
-def make_bench(root: str) -> str:
+def kind_names():
+    """The acoustic-model kinds of `portbench/kinds/`."""
+    d = os.path.join(ROOT, "portbench", "kinds")
+    return sorted(f[:-3] for f in os.listdir(d)
+                  if f.endswith(".py") and f != "__init__.py")
+
+
+def make_bench(root: str, extra=()) -> str:
     """A temporary root holding BENCHMARK.json and portbench's data files,
-    with the tiny cells added by files and entries alone."""
+    with the tiny cells added by files and entries alone: one a kind of
+    `portbench/kinds/`, and one a name of `extra`, whose kind file
+    (`data/<name>.py`) is added to the root's `kinds/` too."""
     src = os.path.join(ROOT, "portbench")
     dst = os.path.join(root, "portbench")
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
         ".cache", ".out", "__pycache__", "tests"))
-    for m in ("cont", "semi"):
+    for m in extra:
+        shutil.copy(os.path.join(DATA, f"{m}.py"), os.path.join(dst, "kinds"))
+    names = kind_names() + list(extra)
+    for m in names:
         shutil.copy(os.path.join(DATA, f"tiny-{m}.json"),
                     os.path.join(dst, "configs"))
     shutil.copy(os.path.join(DATA, "tiny-batch.json"),
                 os.path.join(dst, "traffic"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
         spec = json.load(fh)
-    for m in ("cont", "semi"):
+    for m in names:
         spec["configs"].append({"name": f"tiny-{m}", "source": "test",
                                 "file": f"portbench/configs/tiny-{m}.json",
                                 "reduced": [], "why": "test"})
-    cells = {"tiny-cont.batch": ("tiny-cont", "tiny-batch"),
-             "tiny-semi.batch": ("tiny-semi", "tiny-batch")}
+    cells = {f"tiny-{m}.batch": (f"tiny-{m}", "tiny-batch") for m in names}
     for name, (c, t) in cells.items():
         spec["workloads"].append({"name": name, "config": c, "traffic": t,
                                   "chips": 1, "why": "test"})

@@ -5,17 +5,19 @@ import filecmp
 
 import pytest
 
+from portbench import kinds
 from portbench.gen import task as gen_task
 
 FILES = ["hmm/mdef", "hmm/means", "hmm/variances", "hmm/transition_matrices",
          "hmm/feat.params", "hmm/noisedict", "lm.arpa", "words.dict"]
 
 
-def small():
+def small(model):
+    """The program's SMALL size: the shared keys and the kind's own."""
     from cmusphinx_tpu_torch import fixture
-    return gen_task.Size(**{k: getattr(fixture.SMALL, k) for k in (
-        "n_phone", "n_sen", "n_density", "n_density_semi", "n_word",
-        "pron_len", "n_sent", "sent_len")})
+    return gen_task.Size.from_dict({k: getattr(fixture.SMALL, k) for k in (
+        "n_phone", "n_sen", "n_word", "pron_len", "n_sent", "sent_len",
+        *kinds.load(model).SIZE_KEYS)})
 
 
 @pytest.mark.parametrize("model,weights", [("cont", "hmm/mixture_weights"),
@@ -25,7 +27,7 @@ def test_model_files_equal_the_programs(tmp_path, model, weights, seed):
     from cmusphinx_tpu_torch import fixture
     fx = fixture.build(seed, model=model, size=fixture.SMALL)
     fixture.write_model_dir(fx, str(tmp_path / "program"))
-    task = gen_task.build(seed, model, small(), [120, 160])
+    task = gen_task.build(seed, model, small(model), [120, 160])
     gen_task.write_model_dir(task, str(tmp_path / "frozen"))
     for f in FILES + [weights]:
         assert filecmp.cmp(tmp_path / "program" / f, tmp_path / "frozen" / f,
@@ -36,7 +38,7 @@ def test_model_files_equal_the_programs(tmp_path, model, weights, seed):
 def test_decoder_decodes_the_pool(tmp_path, model):
     from cmusphinx_tpu_torch.api import Decoder
     lengths = [100, 140, 170, 200]
-    task = gen_task.build(0, model, small(), lengths)
+    task = gen_task.build(0, model, small(model), lengths)
     assert [len(c) for c in task.ceps] == lengths
     kw = gen_task.write_model_dir(task, str(tmp_path))
     dec = Decoder(device="cpu", **kw)
@@ -45,8 +47,8 @@ def test_decoder_decodes_the_pool(tmp_path, model):
 
 
 def test_the_seed_changes_weights_and_speech_not_sizes_or_structure():
-    a = gen_task.build(1, "cont", small(), [90, 120], structure_seed=9)
-    b = gen_task.build(2, "cont", small(), [90, 120], structure_seed=9)
+    a = gen_task.build(1, "cont", small("cont"), [90, 120], structure_seed=9)
+    b = gen_task.build(2, "cont", small("cont"), [90, 120], structure_seed=9)
     assert [len(c) for c in a.ceps] == [len(c) for c in b.ceps] == [90, 120]
     assert not (a.ceps[0] == b.ceps[0]).all()
     assert not (a.am.means == b.am.means).all()

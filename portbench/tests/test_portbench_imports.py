@@ -13,9 +13,10 @@ PKG = os.path.dirname(HERE)
 JAX = {"jax", "jaxlib", "flax", "cmusphinx_tpu"}
 PROGRAM = "cmusphinx_tpu_torch"
 # Modules that take nothing of the program: the reference, the generator,
-# the traffic, the counters and the trace reduction.
-INDEPENDENT = ("reference", "gen", "traffic.py", "counters.py", "trace.py",
-               "check.py", "layers.py", "metrics")
+# the kinds and their loader, the traffic, the counters and the trace
+# reduction.
+INDEPENDENT = ("reference", "gen", "kinds", "byname.py", "traffic.py",
+               "counters.py", "trace.py", "check.py", "layers.py", "metrics")
 
 
 def sources():

@@ -1,15 +1,11 @@
 """Each reader on a hand-made trace and window, with the values worked
 out by hand."""
 
-import os
-
 import pytest
 
-from portbench import counters, drive, harness
+from portbench import counters, drive, harness, kinds
 from portbench import trace as trace_mod
 
-METRICS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "metrics")
 CONT = {"kind": "cont", "S": 6144, "K": 8, "D": 39}
 
 
@@ -48,7 +44,7 @@ def run_of(tr, **window):
 
 
 def read(name, run):
-    return harness.load_reader(os.path.join(METRICS, name + ".py"))(run)
+    return harness.reader(name)(run)
 
 
 def test_trace_reduction():
@@ -78,7 +74,7 @@ def test_device_readers():
     assert read("device_idle_pct.batch", run) == pytest.approx(42.0)
     # Over the batches outside the profiled slice alone.
     assert read("mfu.batch", run) == pytest.approx(
-        100 * counters.continuous_gmm_flops(4000, 6144, 8, 39)
+        100 * kinds.load("cont").continuous_gmm_flops(4000, 6144, 8, 39)
         / (2.0 * counters.PEAK_BF16))
     assert read("graph_captures.batch", run) == 3.0
     assert read("batch_xrt", run) == 20.0
