@@ -221,13 +221,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rate).  Phases 8, 9, 11 and 12 count the kernels' launches on the
    main path (`tree_step.launches`: two a frame step of the one-copy
    tree, none in a flat lexicon's decode).
+35. ptm: pocketsphinx's en-us PTM model at its widths (`PTM_SIZE`: the
+   fixture's `ptm8` kind, 5,126 senones, a codebook of 128 Gaussians a CI
+   phone and stream, 3 streams of 13, an 8-bit sendump) written as a
+   model directory and loaded by Decoder(device="cuda"), which must pick
+   PtmParityScorer; its 16 utterances through decode_batch_cep with
+   `ptm_parity.launches` cleared just before (one launch a batch), word
+   errors; the kernel's scores on that decode's features bit-equal to the
+   plain path (`score_ref`) on the card, and for 64 frames on the host
+   CPU; the kernel's time at the benchmark's 9,600 frames (CUDA events,
+   one launch a call), the plain path's, and the bound (the bytes it must
+   move at the least, `ptm_parity.least_bytes`, over the memory rate).
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
 23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
 13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11,
-phase 33 after 17, phase 34 after 3.
+phase 33 after 17, phases 34 and 35 after 3.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -263,8 +274,9 @@ from cmusphinx_tpu_torch.decode.align_tp import _pred_table, align_time_parallel
 from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
-                                     SemiContinuousScorer, approx, cuda_libs,
-                                     fused_gmm, subvq, tree_step)
+                                     PtmParityScorer, SemiContinuousScorer,
+                                     approx, cuda_libs, fused_gmm, ptm_parity,
+                                     subvq, tree_step)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 from cmusphinx_tpu_torch.models.gauden import read_gauden
@@ -323,6 +335,12 @@ PEAK_BYTES = 3.35e12
 # channels, emitting states, senone-sequence rows, roots and CI phones.
 TREE_SHAPE = {"B": 16, "C": 262717, "S": 3, "n_xs": 60636, "R": 1523,
               "n_ci": 40}
+# Phase 35: pocketsphinx's en-us PTM model at its widths (portbench's
+# en-us-ptm-64k: 5,126 senones, a codebook of 128 Gaussians a CI phone and
+# stream, 3 streams of 13) over the slice's 300 words, and the frames of
+# the benchmark's batch at which the kernel is timed.
+PTM_SIZE = dataclasses.replace(fixture.FULL, n_sen=5126, n_density_ptm=128)
+PTM_FRAMES = 9600
 # Exps a clock on each SM's special-function units (sm_90), at the card's
 # highest SM clock as nvidia-smi reports it (phase 1).  That K1's exps run
 # on these units alone is an assumption of its design, not a hard limit:
@@ -3412,6 +3430,67 @@ def tree_step_row(r: dict, main_paths) -> dict:
                                  "bound_by")}}
 
 
+def phase_ptm(dev) -> dict:
+    """Phase 35: the PTM parity kernel on the main path at PTM_SIZE."""
+    fx = fixture.build(SEED, model="ptm8", size=PTM_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = fixture.write_model_dir(fx, tmp)
+        t0 = time.perf_counter()
+        dec = Decoder(device=dev, **kw)
+        init_s = time.perf_counter() - t0
+    sc, search = dec.scorer, dec.search
+    if type(sc) is not PtmParityScorer:
+        raise AssertionError(f"ptm8: Decoder chose {type(sc).__name__}")
+    search.decode_batch_cep(fx.ceps, dec.fp)               # builds, warms
+    # The main path, once, counted.
+    ptm_parity.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps = search.decode_batch_cep(fx.ceps, dec.fp)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = ptm_parity.launches["score"]
+    c, T, Ts = search._pad(fx.ceps)
+    with torch.inference_mode():
+        feats = dec.fp._padded_kernel(c, T, True)
+        x = feats.reshape(-1, feats.shape[-1])
+        differ = int((sc.score(x) != sc.score_ref(x)).sum())
+        host = copy.deepcopy(sc).cpu()
+        differ_host = int((sc.score(x[:64]).cpu()
+                           != host.score_ref(x[:64].cpu())).sum())
+        xt = x.repeat(-(-PTM_FRAMES // x.shape[0]), 1)[:PTM_FRAMES]
+        ptm_parity.launches.clear()
+        ms = cuda_ms(lambda: sc.score(xt))
+        per_call = ptm_parity.launches["score"] / 11
+        plain_ms = cuda_ms(lambda: sc.score_ref(xt), reps=2)
+    nbytes = ptm_parity.least_bytes(PTM_FRAMES, sc)
+    errs = sum(fixture.word_errors(r, h.words)
+               for r, h in zip(fx.transcripts, hyps))
+    out = {"phase": "ptm", "S": sc.n_sen, "C": sc.n_cb, "F": sc.n_feat,
+           "K": sc.n_density, "frames": x.shape[0], "init_s": init_s,
+           "decode_s": decode_s, "launches": launches,
+           "word_errors": errs,
+           "ref_words": sum(len(r) for r in fx.transcripts),
+           "differ_card_plain": differ, "differ_host_plain_64": differ_host,
+           "timed_frames": PTM_FRAMES, "launches_a_call": per_call,
+           "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+    emit(out)
+    if launches != 1 or per_call != 1 or differ or differ_host:
+        raise AssertionError(f"ptm: {out}")
+    return out
+
+
+def ptm_row(r: dict) -> dict:
+    """The kernel-table row of phase 35's result `r`."""
+    return {"name": "ptm_parity_kernel", "route": "cuda",
+            "source": "cmusphinx_tpu_torch/csrc/ptm_parity.cu",
+            "replaces": "none: the JAX package has no PTM parity scorer",
+            "shape": {k: r[k] for k in ("timed_frames", "C", "F", "K", "S")},
+            **{k: r[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")}}
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     info = phase_device()
@@ -3446,6 +3525,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
                          T=T_STREAM)
     k1_loop = phase_k1_wide(dev, exps)
     tree_k = phase_tree_step(dev)
+    ptm = phase_ptm(dev)
     cont = fixture.build(SEED)
     grammar = phase_grammar(dev, cont, tmp, holds)
     train = phase_train(dev, holds, tmp)
@@ -3520,7 +3600,8 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
                                            for k in keys}},
         "depth_loop": {f"D={d}": {m: {k: k1_loop[d][m][k] for k in keys}
                                   for m in MODES} for d in D_LOOP}},
-        tree_step_row(tree_k, (static, tree, stream_tree, stream))]}
+        tree_step_row(tree_k, (static, tree, stream_tree, stream)),
+        ptm_row(ptm)]}
 
 
 if __name__ == "__main__":

@@ -21,7 +21,10 @@ chunk.
 The acoustic scorer is chosen from the model directory the way
 acmod_init_am does (acmod.c:78), in the reference's order: a `sendump`
 gives the bit-faithful `PsParityScorer` (or, with `-parity no`,
-`SemiContinuousScorer`); otherwise `mixture_weights` with one codebook set
+`SemiContinuousScorer`), and where its codebooks are one a CI phone (more
+than one: pocketsphinx's PTM models, after s2_semi_mgau_init declines) the
+bit-faithful `PtmParityScorer` (its kernel on CUDA; `-parity no` raises);
+otherwise `mixture_weights` with one codebook set
 gives `SemiContinuousScorer`, one codebook per senone `ContinuousScorer`
 (kernel K1 on CUDA), one per CI phone `PTMScorer`; `-lambda` wraps it in
 `InterpolatedScorer`.  `device` says where the scorer, the feature
@@ -65,7 +68,7 @@ from .decode.results import Hypothesis, Segment
 from .frontend.fe import FE_ARGS, Frontend, FrontendStream
 from .frontend.feat import FEAT_ARGS, FeatPipeline
 from .ops.gmm import (ContinuousScorer, InterpolatedScorer, PsParityScorer,
-                      PTMScorer, SemiContinuousScorer)
+                      PtmParityScorer, PTMScorer, SemiContinuousScorer)
 
 DECODER_ARGS = [
     Arg("hmm", str, "", "Directory containing acoustic model files"),
@@ -223,8 +226,19 @@ class Decoder:
         slices = self.fp.stream_slices()
         dev = self.device
         if sendump:
+            ptm = gauden.n_mgau == self.mdef.n_ciphone > 1
+            if ptm and not bool(cfg["parity"]):
+                raise ValueError(
+                    f"a sendump model with {gauden.n_mgau} codebooks, one a "
+                    "CI phone (PTM), is scored by the parity scorer only: "
+                    "-parity no has no float scorer for it")
             if bool(cfg["parity"]):
                 raw, meta = read_sendump(sendump, return_raw=True)
+                if ptm:
+                    return PtmParityScorer(
+                        gauden, raw, slices, sen2cb=self.mdef.sen2cimap,
+                        topn=int(cfg["topn"]), n_bits=meta["n_bits"],
+                        device=dev)
                 return PsParityScorer(gauden, raw, slices,
                                       topn=int(cfg["topn"]),
                                       wrap_uint8=meta["n_bits"] == 4,

@@ -13,7 +13,7 @@ decode path needs:
 - Bakis transition matrices with one skip, one per CI phone;
 - a dictionary of multi-phone words (plus the fillers `Dictionary.read`
   adds) and a trigram LM from `lm.estimate.train_lm` on seeded sentences;
-- an acoustic model of one of four kinds (`model`):
+- an acoustic model of one of five kinds (`model`):
   - `cont`: continuous, one codebook of K Gaussians per senone over the
     39-dim `1s_c_d_dd` features: prec = 0.5/var, variances in a range
     typical of trained models, small delta means;
@@ -24,6 +24,9 @@ decode path needs:
   - `s2_4x`: semi-continuous over the 4-stream `s2_4x` features (12/24/3/12
     dimensions, as the tidigits model), 4-bit sendump weights;
   - `ptm`: phonetically tied mixtures, one codebook per CI phone;
+  - `ptm8`: phonetically tied mixtures as pocketsphinx's PTM models hold
+    them, one codebook per CI phone and stream, 3 streams of 13, 8-bit
+    sendump weights (`PtmParityScorer`);
 - cepstra synthesized along transcripts drawn from those sentences: each
   state of the transcript's triphone sequence is held 3-8 frames, and each
   frame's static cepstra lie near a Gaussian that the senone weights
@@ -126,6 +129,8 @@ FEAT_PARAMS: Dict[str, Dict[str, object]] = {
     "cont": {"feat": "1s_c_d_dd", **_BASE_FEAT},
     "ptm": {"feat": "1s_c_d_dd", **_BASE_FEAT},
     "semi": {"feat": "1s_c_d_dd", "svspec": "0-12/13-25/26-38",
+             **_BASE_FEAT},
+    "ptm8": {"feat": "1s_c_d_dd", "svspec": "0-12/13-25/26-38",
              **_BASE_FEAT},
     "s2_4x": {"feat": "s2_4x", **_BASE_FEAT},
 }
@@ -428,7 +433,39 @@ def _ptm(rng, size: Size, mdef: Mdef) -> _Acoustic:
     return _Acoustic(_gaussians(means, var, [D]), _ln_weights(mixw), emit)
 
 
-_ACOUSTIC = {"cont": _continuous, "ptm": _ptm,
+def _ptm8(rng, size: Size, mdef: Mdef) -> _Acoustic:
+    """Phonetically tied mixtures as pocketsphinx's PTM models hold them:
+    one codebook of K Gaussians per CI phone and stream, 3 streams of 13
+    (`-svspec`), an 8-bit sendump.  Stream 0 holds the static cepstra; each
+    senone's stream-0 weights concentrate on 3 codewords of its phone's
+    codebook (`mdef.sen2cimap`), and its frames are drawn from them.  The
+    other streams get generic codebooks and near-uniform weights."""
+    C, S, K = mdef.n_ciphone, size.n_sen, size.n_density_ptm
+    lens = [len(x) for x in _stream_slices(FEAT_PARAMS["ptm8"])]
+    words = rng.normal(0.0, 1.5, (C, K, NCEP))         # codeword cepstra
+    means = np.zeros((C, len(lens), K, NCEP), np.float32)
+    var = np.zeros_like(means)
+    means[:, 0] = words
+    var[:, 0] = rng.uniform(0.2, 0.6, (C, K, NCEP))
+    for f in range(1, len(lens)):
+        means[:, f] = rng.normal(0.0, 2.0, (C, K, NCEP))
+        var[:, f] = rng.uniform(1.0, 4.0, (C, K, NCEP))
+    w0 = _peaked(rng, S, K, 3)
+    ws = [w0] + [rng.dirichlet(np.full(K, 50.0), size=S) for _ in lens[1:]]
+    ln_mixw = np.log(np.stack(ws)).transpose(0, 2, 1)       # [F, K, S]
+    p0 = w0 / w0.sum(-1, keepdims=True)
+    cb = np.maximum(np.asarray(mdef.sen2cimap, np.int64), 0)
+
+    def emit(rng, s, n):
+        k = rng.choice(K, size=n, p=p0[s])
+        return words[cb[s], k] + rng.normal(0.0, 0.25, (n, NCEP))
+
+    return _Acoustic(_gaussians(means, var, lens),
+                     np.ascontiguousarray(ln_mixw, np.float32), emit,
+                     sendump_bits=8)
+
+
+_ACOUSTIC = {"cont": _continuous, "ptm": _ptm, "ptm8": _ptm8,
              "semi": _semi("semi", static=list(range(NCEP)), bits=8),
              "s2_4x": _semi("s2_4x", static=list(range(1, NCEP)), bits=4)}
 

@@ -1,7 +1,8 @@
 """GMM senone scoring (port of `cmusphinx_tpu/ops/gmm.py`: `GEMM_PRECISIONS`,
 `density_logliks`, `_mask_topn`, `SemiContinuousScorer`,
 `ContinuousScorer`, `PTMScorer`, `logadd8_table`, `PsParityScorer`,
-`InterpolatedScorer`).
+`InterpolatedScorer`), and `PtmParityScorer`, the scorer of pocketsphinx's
+default PTM model, which the JAX package does not have.
 
 The log Gaussian density `lrd - sum_d prec (x - mean)^2` expands to
 `const + x . lin - (x*x) . prec`: two GEMMs over all codewords and frames.
@@ -30,6 +31,8 @@ import torch
 from torch import nn
 
 from ..models.gauden import GaussianParams
+from ..utils.profile import span
+from . import ptm_parity
 from .fused_gmm import (PRECISIONS, _REF_CHUNK_BYTES, Packed,
                         fused_mixture_scores, fused_mixture_scores_ref,
                         pack_params)
@@ -37,6 +40,8 @@ from .fused_gmm import mask_topn as _mask_topn
 
 GEMM_PRECISIONS = PRECISIONS
 _INT32_MIN = torch.iinfo(torch.int32).min
+# Bytes of the PTM parity scorer's largest temporary a frame chunk.
+_PTM_CHUNK_BYTES = 64 << 20
 
 
 def density_logliks(x: torch.Tensor, means: torch.Tensor, prec: torch.Tensor,
@@ -480,6 +485,184 @@ class PsParityScorer(_StreamParams):
 
     def score(self, feats: torch.Tensor) -> torch.Tensor:
         out = self.epilogue(self.int_densities(_flat(feats)))
+        return out.reshape(*feats.shape[:-1], self.n_sen)
+
+    forward = score
+
+
+class PtmParityScorer(nn.Module):
+    """Bit-faithful emulation of pocketsphinx's phonetically-tied-mixture
+    scorer (ptm_mgau.c: eval_topn, ptm_mgau_codebook_norm,
+    ptm_mgau_senone_eval), the scorer of its default US English model.
+    One codebook of K Gaussians a CI phone and stream; each senone mixes
+    its CI phone's codebook (`sen2cb`, the mdef's sen2cimap) with 8-bit
+    weights over the codebook's top N in each stream.  With logbase b,
+    SHIFT and MAX_NEG_ASCR = 96:
+
+    (a) densities, for frame n, codebook c, stream f, codeword k:
+        d = int32-truncate(clamp(lrd' - sum_j prec'_j (x_j - mu_j)^2,
+        -2e9, 0)) with prec' = trunc(1/(2 var) / ln b) and lrd' = sum_j
+        trunc(ln(1/sqrt(2 pi var_j)) / ln b), in float32, one dimension
+        after another as the reference's loop: diff, its square, times
+        prec', subtracted, each rounded (no fused multiply-add).
+    (b) the top N of each (n, c, f), ties to the lower index, equal values
+        kept as separate entries (`PsParityScorer.topn_select`); the norm
+        of each (n, f), the max over c of top_0 >> SHIFT; fsc_r =
+        min(norm - (top_r >> SHIFT), MAX_NEG_ASCR); for senone s with cb =
+        sen2cb[s], per stream y_r = mixw[f, idx_r, s] + fsc_r, fden = y_0,
+        then fden = min(fden, y_r) - table8[min(|fden - y_r|, 255)]; the sum
+        over streams times -float32(2^SHIFT ln b).
+
+    Returns natural-log senone scores [..., T, S], frame-relative (<= 0).
+    Stage (b) is exact integer arithmetic; stage (a) is the same float32
+    sequence on every device, so the CUDA kernel (`ops/ptm_parity.py`)
+    and the plain path agree bit for bit.
+
+    Departures from ptm_mgau.c: the norm is taken over all codebooks (the
+    batch decode scores every senone, pocketsphinx's `-compallsen yes`,
+    where every codebook is active; without it the reference takes the
+    norm over the active codebooks only); ties go to the lower index
+    (eval_topn keeps the previous frame's order among equal scores, a
+    history a batch decode does not have); a 4-bit sendump raises
+    `ValueError` rather than guess the cluster codebook; senones that no
+    phone uses (sen2cimap -1) are scored with codebook 0, a score nothing
+    reads.
+
+    CUDA tensors go to the one kernel of `ops/ptm_parity.py` (which raises
+    on a model it was not built for, `ptm_parity.check`), CPU tensors to
+    the plain path (`score_ref`), in frame chunks that bound its memory.
+    """
+
+    MAX_NEG_ASCR = 96    # tied_mgau_common.h:85
+    LOGBASE = 1.0001     # the reference's -logbase
+    SHIFT = 10           # SENSCR_SHIFT, the 8-bit weights' and scores' shift
+
+    def __init__(self, gauden: GaussianParams, raw_mixw: np.ndarray,
+                 stream_slices: Sequence[np.ndarray], sen2cb: np.ndarray,
+                 topn: int = 4, n_bits: int = 8, *,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        if n_bits != 8:
+            raise ValueError(
+                f"PTM parity scorer reads 8-bit sendumps only, got "
+                f"{n_bits}-bit (a 4-bit PTM sendump needs its cluster "
+                "codebook)")
+        raw = np.asarray(raw_mixw)
+        C, F, K = gauden.n_mgau, gauden.n_feat, gauden.n_density
+        if raw.ndim != 3 or raw.shape[:2] != (F, K):
+            raise ValueError(f"mixture weights must be [{F}, {K}, S], got "
+                             f"{raw.shape}")
+        if len(stream_slices) != F:
+            raise ValueError(f"{len(stream_slices)} streams but model has {F}")
+        sen2cb = np.asarray(sen2cb, np.int64)
+        if sen2cb.shape != (raw.shape[2],):
+            raise ValueError(f"sen2cb must be [{raw.shape[2]}], got "
+                             f"{sen2cb.shape}")
+        if sen2cb.max(initial=0) >= C or sen2cb.min(initial=0) < -1:
+            raise ValueError(f"sen2cb must index the {C} codebooks")
+        if not 1 <= int(topn) <= K:
+            raise ValueError(f"topn must be in [1, {K}], got {topn}")
+        ln_b = math.log(self.LOGBASE)
+        inv = 1.0 / ln_b
+        means, prec, lrd = [], [], []
+        for f in range(F):
+            ln = gauden.veclen[f]
+            if len(stream_slices[f]) != ln:
+                raise ValueError(f"stream {f} has {len(stream_slices[f])} "
+                                 f"features but the model {ln}")
+            v = gauden.var[:, f, :, :ln].astype(np.float64)     # [C, K, L]
+            means.append(_f32(gauden.means[:, f, :, :ln]))
+            prec.append(_f32(np.trunc((1.0 / (2.0 * v)) * inv)))
+            lrd.append(_f32(np.trunc(np.log(1.0 / np.sqrt(2.0 * np.pi * v))
+                                     * inv).sum(axis=-1)))
+        for f in range(F):
+            for name, a in (("means", means[f]), ("prec", prec[f]),
+                            ("lrd", lrd[f])):
+                self.register_buffer(f"{name}{f}",
+                                     torch.as_tensor(a).to(device))
+            self.register_buffer(f"slice{f}", torch.as_tensor(
+                np.asarray(stream_slices[f], np.int64)).to(device),
+                persistent=False)
+        self.register_buffer("mixw", torch.as_tensor(
+            np.ascontiguousarray(raw, np.int32)).to(device))      # [F, K, S]
+        self.register_buffer("sen2cb", torch.as_tensor(
+            np.maximum(sen2cb, 0)).to(device))
+        self.register_buffer("table8", torch.as_tensor(
+            logadd8_table(self.LOGBASE, self.SHIFT)).to(device))
+        self.n_cb, self.n_feat, self.n_density = C, F, K
+        self.n_sen = raw.shape[2]
+        self.veclen = [int(gauden.veclen[f]) for f in range(F)]
+        self.topn = int(topn)
+        self.scale = float((1 << self.SHIFT) * ln_b)
+        self._packed = None
+
+    # -- stage (a) -------------------------------------------------------
+    def int_densities(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x [N, D] -> per stream the int32 densities [N, C, K]."""
+        out = []
+        for f in range(self.n_feat):
+            xs = x[:, getattr(self, f"slice{f}")].float()
+            mu, pr = getattr(self, f"means{f}"), getattr(self, f"prec{f}")
+            d = getattr(self, f"lrd{f}").expand(x.shape[0], -1, -1)
+            for j in range(self.veclen[f]):
+                diff = xs[:, j, None, None] - mu[:, :, j]
+                d = d - diff * diff * pr[:, :, j]
+            out.append(d.clamp(-2.0e9, 0.0).to(torch.int32))
+        return out
+
+    # -- stage (b) -------------------------------------------------------
+    def epilogue(self, d_ints: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Per-stream int32 densities [N, C, K] -> senone scores [N, S]."""
+        acc = None
+        for f, d in enumerate(d_ints):
+            N, C, K = d.shape
+            vals, idx = PsParityScorer.topn_select(d.reshape(N * C, K),
+                                                   self.topn)
+            vals = vals.view(N, C, -1) >> self.SHIFT
+            idx = idx.view(N, C, -1)
+            norm = vals[:, :, 0].amax(1)                        # [N]
+            fsc = (norm[:, None, None] - vals).clamp_max(self.MAX_NEG_ASCR)
+            ii, ff = idx[:, self.sen2cb], fsc[:, self.sen2cb]   # [N, S, n]
+            w = self.mixw[f]                                    # [K, S]
+            tmp = None
+            for r in range(self.topn):
+                y = torch.gather(w, 0, ii[:, :, r]) + ff[:, :, r]
+                if tmp is None:
+                    tmp = y
+                    continue
+                dd = (tmp - y).abs().clamp_max(255)
+                tmp = torch.minimum(tmp, y) - self.table8[dd]
+            acc = tmp if acc is None else acc + tmp
+        return -acc.to(torch.float32) * float(np.float32(self.scale))
+
+    def score_ref(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain path: x [N, D] -> [N, S], in frame chunks whose
+        largest temporaries ([n, C, K] float32, [n, S, N] int64) stay near
+        `_PTM_CHUNK_BYTES`."""
+        per_row = max(self.n_cb * self.n_density * 4,
+                      self.n_sen * self.topn * 8)
+        rows = max(1, _PTM_CHUNK_BYTES // per_row)
+        return torch.cat([self.epilogue(self.int_densities(x[lo: lo + rows]))
+                          for lo in range(0, x.shape[0], rows)]
+                         or [x.new_zeros((0, self.n_sen))])
+
+    def packed(self):
+        """The kernel's operands (`ptm_parity.pack`), made once."""
+        if self._packed is None:
+            self._packed = ptm_parity.pack(self)
+        return self._packed
+
+    def _apply(self, *args, **kwargs):
+        self._packed = None
+        return super()._apply(*args, **kwargs)
+
+    def score(self, feats: torch.Tensor) -> torch.Tensor:
+        x = _flat(feats)
+        with span("ptm.score"):
+            if x.device.type == "cuda":
+                out = ptm_parity.score(x, self, self.packed())
+            else:
+                out = self.score_ref(x)
         return out.reshape(*feats.shape[:-1], self.n_sen)
 
     forward = score

@@ -2,7 +2,8 @@
 one-utterance decode through it, the other scorers, the frontend, the
 Decoder, the LM backends, the large-vocabulary searches, the streaming
 decode and the lattice results on the card against their CPU runs, the
-one-copy tree step's two kernels against their plain version, K1 on
+one-copy tree step's two kernels against their plain version, the PTM
+parity kernel against the CPU bit for bit and through `Decoder`, K1 on
 senone shards against the unsharded call, `tools fe` on the card
 against `-platform cpu`, every search's frame loop through captured
 CUDA graphs against its eager blocks (bit-equal), and the frame loop's
@@ -42,8 +43,8 @@ from cmusphinx_tpu_torch.models.gauden import GaussianParams
 from cmusphinx_tpu_torch.decode import NgramSearch, ngram_search
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, InterpolatedScorer,
-                                     PsParityScorer, PTMScorer,
-                                     SemiContinuousScorer)
+                                     PsParityScorer, PtmParityScorer,
+                                     PTMScorer, SemiContinuousScorer)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 from cmusphinx_tpu_torch.train import bw
@@ -291,6 +292,46 @@ def test_psparity_on_card_matches_cpu(cuda, lens, wrap):
         else:
             for a, b in zip(d_gpu, d_cpu):
                 assert int((a.cpu().long() - b.long()).abs().max()) <= 2
+
+
+# The PTM parity kernel against the plain path on the host CPU: stage (a)
+# is the same float32 sequence on both (no fused multiply-add) and stage
+# (b) integer arithmetic, so the scores are equal bit for bit, on an
+# integer-exact model and on real-valued inputs alike.
+@pytest.mark.parametrize("topn", [1, 4])
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "real"])
+def test_ptm_parity_kernel_matches_cpu(cuda, integer, topn):
+    from cmusphinx_tpu_torch.ops import ptm_parity
+    from test_torch_ptm_parity import SLICES, frames, model
+    rng = np.random.RandomState(7 + topn)
+    g = model(rng, integer=integer, ties=3, C=9, K=16)
+    raw = rng.randint(0, 256, (3, 16, 700)).astype(np.uint8)
+    sen2cb = rng.randint(-1, 9, 700)
+    cpu = PtmParityScorer(g, raw, SLICES, sen2cb, topn=topn, device="cpu")
+    gpu = PtmParityScorer(g, raw, SLICES, sen2cb, topn=topn, device=cuda)
+    x = torch.as_tensor(frames(rng, g, 300, integer=integer, near=8))
+    before = ptm_parity.launches["score"]
+    got = gpu.score(x.to(cuda).view(3, 100, -1))
+    torch.cuda.synchronize()
+    assert ptm_parity.launches["score"] - before == 1
+    assert torch.equal(got.cpu().view(300, -1), cpu.score(x))
+    assert torch.equal(got.view(300, -1), gpu.score_ref(x.to(cuda)))
+
+
+def test_decoder_on_card_runs_the_ptm_kernel(cuda, tmp_path):
+    """A 3-stream 8-bit PTM directory on the card: `PtmParityScorer`, one
+    kernel launch a batch, the CPU Decoder's words."""
+    from cmusphinx_tpu_torch.api import Decoder
+    from cmusphinx_tpu_torch.ops import ptm_parity
+    fx = fixture.build(0, model="ptm8", size=fixture.SMALL)
+    kw = fixture.write_model_dir(fx, str(tmp_path))
+    gpu, cpu = Decoder(device=cuda, **kw), Decoder(device="cpu", **kw)
+    assert isinstance(gpu.scorer, PtmParityScorer)
+    before = ptm_parity.launches["score"]
+    got = [h.words for h in gpu.search.decode_batch_cep(fx.ceps, gpu.fp)]
+    assert ptm_parity.launches["score"] - before == 1
+    want = [h.words for h in cpu.search.decode_batch_cep(fx.ceps, cpu.fp)]
+    assert got == want == fx.transcripts
 
 
 def test_float_scorers_on_card_match_cpu(cuda):
