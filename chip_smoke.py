@@ -22,7 +22,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    T=2000.
 4. the slice: the seeded hub4-class fixture (cmusphinx_tpu_torch.fixture,
    16 utterances) through NgramSearch.decode_batch_cep with K1, its launch
-   count, hypotheses against the plain scorer's on the card, WER and xRT.
+   count and the mpx step's kernels' (`mpx_step.launches`: two a padded
+   frame step), hypotheses against the plain scorer's on the card, WER
+   and xRT.
 5. semicont_scorer: PsParityScorer (8-bit and 4-bit weights) and
    SemiContinuousScorer at the hub4wsj_sc_8k width (S=5150, K=256, 3x13
    svspec streams, top-4, T=2000 frames of the semi-continuous fixture) on
@@ -220,7 +222,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    kernels move at the least, `tree_step.least_bytes`, over the memory
    rate).  Phases 8, 9, 11 and 12 count the kernels' launches on the
    main path (`tree_step.launches`: two a frame step of the one-copy
-   tree, none in a flat lexicon's decode).
+   tree, none in a flat lexicon's decode), and phases 4, 8, 9, 11, 12 and
+   35 the mpx step's (`mpx_step.launches`: two a frame step of a flat
+   lexicon with exact left contexts, none in the static and tree
+   decodes).
 35. ptm: pocketsphinx's en-us PTM model at its widths (`PTM_SIZE`: the
    fixture's `ptm8` kind, 5,126 senones, a codebook of 128 Gaussians a CI
    phone and stream, 3 streams of 13, an 8-bit sendump) written as a
@@ -232,13 +237,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CPU; the kernel's time at the benchmark's 9,600 frames (CUDA events,
    one launch a call), the plain path's, and the bound (the bytes it must
    move at the least, `ptm_parity.least_bytes`, over the memory rate).
+   The decode's search is the mpx step (300 words: fanout exits), its
+   kernels counted too.
+36. mpx_step: the mpx step's two kernels (ops/mpx_step.py,
+   csrc/mpx_step.cu) at the PTM cell's shape (`MPX_SHAPE`: B=16 and the
+   64k flat graph's channels, senone-sequence rows, words and CI phones;
+   seeded scores, carry and word chains) against their plain version on
+   the card, bit for bit, with the beams on and off and with and without
+   the phone-loop lookahead; the time of each kernel and of the plain
+   version (CUDA events), and their bound (`mpx_step.least_bytes` over the
+   memory rate).
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
 23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
 13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11,
-phase 33 after 17, phases 34 and 35 after 3.
+phase 33 after 17, phases 34-36 after 3.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -275,8 +290,8 @@ from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
                                      PtmParityScorer, SemiContinuousScorer,
-                                     approx, cuda_libs, fused_gmm, ptm_parity,
-                                     subvq, tree_step)
+                                     approx, cuda_libs, fused_gmm, mpx_step,
+                                     ptm_parity, subvq, tree_step)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 from cmusphinx_tpu_torch.models.gauden import read_gauden
@@ -341,6 +356,13 @@ TREE_SHAPE = {"B": 16, "C": 262717, "S": 3, "n_xs": 60636, "R": 1523,
 # the benchmark's batch at which the kernel is timed.
 PTM_SIZE = dataclasses.replace(fixture.FULL, n_sen=5126, n_density_ptm=128)
 PTM_FRAMES = 9600
+# Phase 36: the PTM cell's mpx step (portbench's en-us-ptm-64k at B=16,
+# its flat graph with exact left contexts, structure seed 2011): channels,
+# emitting states, senone-sequence rows, words, CI phones, and rows of the
+# left-context map.
+MPX_SHAPE = {"B": 16, "C": 349257, "S": 3, "n_xs": 117980, "W": 64002,
+             "n_ci": 40}
+MPX_LC_ROWS = 1522
 # Exps a clock on each SM's special-function units (sm_90), at the card's
 # highest SM clock as nvidia-smi reports it (phase 1).  That K1's exps run
 # on these units alone is an assumption of its design, not a hard limit:
@@ -464,13 +486,18 @@ def phase_build() -> None:
         secs = fused_gmm.build()
         host_loaded = host.result()
     tree_step.build()
+    mpx_step.build()
     k1_lib = cuda_libs.library_path(fused_gmm.LIBRARY)
     log = k1_lib.with_suffix(".log").read_text()
     tree_log = cuda_libs.library_path(tree_step.LIBRARY).with_suffix(
         ".log").read_text()
+    mpx_log = cuda_libs.library_path(mpx_step.LIBRARY).with_suffix(
+        ".log").read_text()
     emit({"phase": "build", "seconds": round(secs, 3),
           "tree_step_ptxas": [ln.strip() for ln in tree_log.splitlines()
                               if "registers" in ln or "spill" in ln],
+          "mpx_step_ptxas": [ln.strip() for ln in mpx_log.splitlines()
+                             if "registers" in ln or "spill" in ln],
           "native_loaded": host_loaded,
           "library": k1_lib.name,
           "ptxas": [ln.strip() for ln in log.splitlines()
@@ -632,13 +659,17 @@ def phase_slice(dev, fx) -> dict:
 
     # The main path, once, counted: every launch of K1 in this run.
     fused_mixture_scores.launches = 0
+    mpx_step.launches.clear()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, fp)
     first_s = time.perf_counter() - t0
     launches = fused_mixture_scores.launches
+    mpx_launches = dict(mpx_step.launches)
     if launches < 1:
         raise AssertionError("the decode did not launch K1")
     tapes = [a.cpu().numpy() for a in search._last_batch[0]]
+    check_mpx_launches("slice", search, mpx_launches,
+                       int(tapes[0].shape[1] // search.E))
 
     walls = []
     for _ in range(DECODE_PASSES):
@@ -683,7 +714,8 @@ def phase_slice(dev, fx) -> dict:
            "audio_s": fx.audio_seconds, "setup_s": setup_s,
            "first_decode_s": first_s, "decode_s": walls,
            "median_decode_s": med, "xRT": fx.audio_seconds / med,
-           "k1_launches": launches, "tape_slots_differing": slot_diff,
+           "k1_launches": launches, "mpx_step_launches": mpx_launches,
+           "tape_slots_differing": slot_diff,
            "tape_int_values_differing": int_diff,
            "tape_float_max_rel_diff": flt_diff,
            "word_errors": errs, "ref_words": n_ref,
@@ -1198,6 +1230,17 @@ def check_tree_launches(name: str, search, counts: dict, steps: int) -> None:
                              f"{counts} over {steps} frame steps, not {want}")
 
 
+def check_mpx_launches(name: str, search, counts: dict, steps: int) -> None:
+    """`mpx_step.launches` over `steps` padded frame steps of `search`:
+    each kernel once a step where the search runs the mpx step, else
+    neither."""
+    want = ({} if search._fast
+            else {"step_exits": steps, "prune_enter": steps})
+    if counts != want:
+        raise AssertionError(f"{name}: the mpx step's kernels launched "
+                             f"{counts} over {steps} frame steps, not {want}")
+
+
 def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
                       want_lex: str, want_lm: str, hold_utts: int | None,
                       holds: Holds) -> dict:
@@ -1223,6 +1266,7 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
     torch.cuda.reset_peak_memory_stats()
     fused_mixture_scores.launches = 0
     tree_step.launches.clear()
+    mpx_step.launches.clear()
     search.dlm.calls.clear()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, fp)
@@ -1230,6 +1274,7 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
     first_s = time.perf_counter() - t0
     launches = fused_mixture_scores.launches
     tree_launches = dict(tree_step.launches)
+    mpx_launches = dict(mpx_step.launches)
     lm_calls = dict(search.dlm.calls)
     peak = peak_mb()
     if lm_calls.get(want_lm, 0) < 1:
@@ -1238,6 +1283,7 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
     tapes = [t.cpu().numpy() for t in search._last_batch[0]]
     frames = int(tapes[0].shape[1] // search.E)
     check_tree_launches(name, search, tree_launches, frames)
+    check_mpx_launches(name, search, mpx_launches, frames)
 
     walls = []
     for _ in range(DECODE_PASSES):
@@ -1270,7 +1316,7 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
            "first_decode_s": first_s, "decode_s": walls,
            "median_decode_s": med, "xRT": fx.audio_seconds / med,
            "k1_launches": launches, "tree_step_launches": tree_launches,
-           "peak_mb": peak, "hyps_identical_across_passes": True,
+           "mpx_step_launches": mpx_launches, "peak_mb": peak, "hyps_identical_across_passes": True,
            "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref,
            "cpu_hold_utterances": hold_utts}
     emit(out)
@@ -1341,6 +1387,7 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
     and timed, each held to its batch row (`hold_stream`)."""
     fused_mixture_scores.launches = 0
     tree_step.launches.clear()
+    mpx_step.launches.clear()
     torch.cuda.synchronize()
     holds, lat_ms, chunks, grew = [], [], 0, []
     wall = 0.0
@@ -1354,11 +1401,13 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
         grew.append(st["max_frames"] > mf)
     launches = fused_mixture_scores.launches
     tree_launches = dict(tree_step.launches)
+    mpx_launches = dict(mpx_step.launches)
     audio_s = sum(len(feats_list[i]) for i in utts) / 100.0
     total, partial = np.array(lat_ms).T
     out = {"phase": name, "utterances": len(utts), "chunk_frames": T_STREAM,
            "chunks": chunks, "k1_launches": launches,
-           "tree_step_launches": tree_launches, "tape_grew": grew,
+           "tree_step_launches": tree_launches,
+           "mpx_step_launches": mpx_launches, "tape_grew": grew,
            "audio_s": audio_s, "stream_wall_s": wall,
            "xRT": audio_s / wall,
            "push_partial_ms_p50": float(np.percentile(total, 50)),
@@ -1377,6 +1426,7 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
         raise AssertionError(f"{name}: K1 launched {launches} times for "
                              f"{chunks} chunks")
     check_tree_launches(name, search, tree_launches, chunks * search.CHUNK)
+    check_mpx_launches(name, search, mpx_launches, chunks * search.CHUNK)
     if max_frames[0] < max(len(feats_list[i]) for i in utts) and not any(grew):
         raise AssertionError(f"{name}: the tape never grew")
     return out
@@ -3430,6 +3480,116 @@ def tree_step_row(r: dict, main_paths) -> dict:
                                  "bound_by")}}
 
 
+def mpx_step_inputs(dev, B, C, S, n_xs, W, n_ci):
+    """Seeded inputs of the mpx step's kernels at a flat lexicon's sizes:
+    C channels cut into W word chains (each word's first channel its
+    entry, every other channel fed by the one before it), static rows and
+    a left-context map of MPX_LC_ROWS rows over n_xs senone-sequence rows,
+    a third of the channels at NEG_INF, random payloads, a third of the
+    words with an entry, the second row not valid."""
+    rng = np.random.RandomState(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(*shape, mean=0.0, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    alpha = normal(B, C, S, mean=-2000.0, std=40.0)
+    alpha[torch.rand((B, C), generator=g, device=dev) < 1 / 3] = \
+        mpx_step.NEG_INF
+    carry = (alpha, ints(-1, 600 * 32, B, C, S), ints(0, n_xs, B, C, S),
+             ints(-1, W, B, C, S), ints(-1, W, B, C, S))
+    starts = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, C), W - 1, replace=False))])
+    is_entry = np.zeros(C, bool)
+    is_entry[starts] = True
+    c = np.arange(C)
+    bands = tuple(normal(*sh, mean=-1.5, std=0.5).contiguous() for sh in
+                  ((C, S), (C, S - 1), (C, S - 2), (C,), (C,)))
+    tab = mpx_step.Tables(
+        i32(rng.randint(0, n_xs, C)), i32(np.where(is_entry, 0, c - 1)),
+        torch.as_tensor(~is_entry, device=dev),
+        torch.as_tensor(is_entry, device=dev), i32(np.cumsum(is_entry) - 1),
+        i32(np.where(is_entry, rng.randint(0, MPX_LC_ROWS, C) * n_ci, 0)),
+        i32(rng.randint(0, n_ci, C)),
+        i32(rng.randint(0, n_xs, MPX_LC_ROWS * n_ci)), bands, True,
+        float(np.float32(np.log(1e-48))), float(np.float32(np.log(7e-29))),
+        0.0)
+    ent_w = normal(B, W, mean=-2040.0, std=20.0)
+    ent_w[torch.rand((B, W), generator=g, device=dev) < 2 / 3] = \
+        mpx_step.NEG_INF
+    ent_pay = torch.stack([ints(-1, 600 * 32, B, W), ints(0, n_ci, B, W),
+                           ints(-1, W, B, W), ints(-1, W, B, W)], -1)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    valid[1] = False
+    return (carry, normal(B, n_xs, S, mean=-60.0, std=10.0), tab, ent_w,
+            ent_pay, torch.stack([normal(B, n_ci, mean=-5.0, std=3.0)] * 2,
+                                 1)[:, 1], valid)
+
+
+def phase_mpx_step(dev) -> dict:
+    """Phase 36: the mpx step's kernels at MPX_SHAPE."""
+    sh = MPX_SHAPE
+    carry, rows, tab, ent_w, ent_pay, la, valid = mpx_step_inputs(dev, **sh)
+
+    def bits(ts):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in ts]
+
+    def copy():
+        return tuple(t.clone() for t in carry)
+
+    st = mpx_step.step_exits(carry, rows, tab)
+    equal = {"step_exits": all(torch.equal(a, b) for a, b in zip(
+        bits(st), bits(mpx_step.step_exits_ref(carry, rows, tab))))}
+    for prune, la_t in ((True, la), (True, None), (False, None),
+                        (False, la)):
+        t = tab._replace(prune=prune)
+        outs = [fn(copy(), rows, st, ent_w, ent_pay, la_t, valid, t)
+                for fn in (mpx_step.prune_enter, mpx_step.prune_enter_ref)]
+        equal[f"prune_enter prune={prune} lookahead={la_t is not None}"] = \
+            all(torch.equal(a, b) for a, b in zip(bits(outs[0]),
+                                                  bits(outs[1])))
+    c0 = copy()
+    ms_a = cuda_ms(lambda: mpx_step.step_exits(carry, rows, tab))
+    ms_b = cuda_ms(lambda: mpx_step.prune_enter(c0, rows, st, ent_w, ent_pay,
+                                                la, valid, tab))
+
+    def plain():
+        e = mpx_step.step_exits_ref(carry, rows, tab)
+        mpx_step.prune_enter_ref(c0, rows, e, ent_w, ent_pay, la, valid, tab)
+    plain_ms = cuda_ms(plain, reps=3)
+    nbytes = mpx_step.least_bytes(**sh, lookahead=True)
+    out = {"phase": "mpx_step", "shape": sh, "bit_equal": equal,
+           "ms_step_exits": ms_a, "ms_prune_enter": ms_b, "ms": ms_a + ms_b,
+           "plain_ms": plain_ms, "bytes": nbytes,
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+    emit(out)
+    if not all(equal.values()):
+        raise AssertionError(f"mpx_step: {equal}")
+    return out
+
+
+def mpx_step_row(r: dict, main_paths) -> dict:
+    """The kernel-table row of phase 36's result `r`; `launches` sums
+    both kernels' launches over the main-path phases `main_paths`."""
+    return {"name": "mpx_step", "route": "cuda",
+            "source": "cmusphinx_tpu_torch/csrc/mpx_step.cu",
+            "replaces": "none: cmusphinx_tpu/decode/ngram_search.py "
+                        "_make_core (XLA-compiled jnp)",
+            "launches": sum(sum(p["mpx_step_launches"].values())
+                            for p in main_paths),
+            **{k: r[k] for k in ("shape", "ms", "ms_step_exits",
+                                 "ms_prune_enter", "plain_ms", "bound_ms",
+                                 "bound_by")}}
+
+
 def phase_ptm(dev) -> dict:
     """Phase 35: the PTM parity kernel on the main path at PTM_SIZE."""
     fx = fixture.build(SEED, model="ptm8", size=PTM_SIZE)
@@ -3444,12 +3604,19 @@ def phase_ptm(dev) -> dict:
     search.decode_batch_cep(fx.ceps, dec.fp)               # builds, warms
     # The main path, once, counted.
     ptm_parity.launches.clear()
+    mpx_step.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, dec.fp)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = ptm_parity.launches["score"]
+    mpx_launches = dict(mpx_step.launches)
+    steps = int(search._last_batch[0][0].shape[1] // search.E)
+    if search.graph.lc_mode != "mpx":
+        raise AssertionError(f"ptm8: the search is {search.graph.lc_mode}, "
+                             f"not mpx")
+    check_mpx_launches("ptm", search, mpx_launches, steps)
     c, T, Ts = search._pad(fx.ceps)
     with torch.inference_mode():
         feats = dec.fp._padded_kernel(c, T, True)
@@ -3469,6 +3636,7 @@ def phase_ptm(dev) -> dict:
     out = {"phase": "ptm", "S": sc.n_sen, "C": sc.n_cb, "F": sc.n_feat,
            "K": sc.n_density, "frames": x.shape[0], "init_s": init_s,
            "decode_s": decode_s, "launches": launches,
+           "mpx_step_launches": mpx_launches, "frame_steps": steps,
            "word_errors": errs,
            "ref_words": sum(len(r) for r in fx.transcripts),
            "differ_card_plain": differ, "differ_host_plain_64": differ_host,
@@ -3526,6 +3694,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     k1_loop = phase_k1_wide(dev, exps)
     tree_k = phase_tree_step(dev)
     ptm = phase_ptm(dev)
+    mpx_k = phase_mpx_step(dev)
     cont = fixture.build(SEED)
     grammar = phase_grammar(dev, cont, tmp, holds)
     train = phase_train(dev, holds, tmp)
@@ -3601,7 +3770,8 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
         "depth_loop": {f"D={d}": {m: {k: k1_loop[d][m][k] for k in keys}
                                   for m in MODES} for d in D_LOOP}},
         tree_step_row(tree_k, (static, tree, stream_tree, stream)),
-        ptm_row(ptm)]}
+        ptm_row(ptm),
+        mpx_step_row(mpx_k, (sl, static, tree, stream_tree, stream, ptm))]}
 
 
 if __name__ == "__main__":

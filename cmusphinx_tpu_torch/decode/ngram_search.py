@@ -17,7 +17,11 @@ one of three frame steps:
 
 - `_step_mpx`: multiplexed left contexts (`lcmode=mpx`), fanout or
   composite right contexts; the senone row of an entry channel rides the
-  Viterbi argmax as a payload, and so do the LM histories.
+  Viterbi argmax as a payload, and so do the LM histories.  Its channel
+  update is `ops/mpx_step.py`: on the card two CUDA kernels around the
+  word-exit readout, each state reading its senone score through its own
+  row of the frame's extended-senone-sequence rows (no expansion); the
+  readout, the tape and the per-word entries stay here.
 - `_step_static`: composite left contexts and a flat lexicon; every
   channel's senones are static, so they are expanded for a block of frames
   at once (`_expand_block`); histories live in a per-slot side-table.
@@ -58,8 +62,9 @@ What differs in form, not in result:
 - Top-k is a stable descending sort, which keeps `jax.lax.top_k`'s
   lowest-index-first order on ties; `topk2` keeps the reference's
   two-stage tie rule.  The tape is the reference's, slot for slot.
-- Payloads ride as int64 (uint8 for the tree's entry age); the tapes are
-  stored as int32.
+- Payloads ride as int32 in the mpx carry, as int64 in the static step
+  and the tree copies, and as uint8 for the one-copy tree's entry age;
+  the tapes are stored as int32.
 
 A stream decodes one utterance (a batch of one) in chunks of `CHUNK`
 frames through the same frame steps, its carry and tape on the device
@@ -98,7 +103,7 @@ from ..models.mdef import Mdef
 from ..models.ngram import NgramModel
 from ..models.ngram_device import DeviceNgram
 from ..models.tmat import TransitionMatrices
-from ..ops import tree_step
+from ..ops import mpx_step, tree_step
 from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from ..utils import native
 from ..utils.config import Arg, Config
@@ -319,8 +324,8 @@ class NgramSearch(nn.Module):
         self.E = min(self.E, v.n_word)
         self.dlm = DeviceNgram(lm, device=self.device)
         self._graphs = True
-        self._runner = BlockRunner(axis=1, counters=(self.dlm.calls,
-                                                     tree_step.launches))
+        self._runner = BlockRunner(axis=1, counters=(
+            self.dlm.calls, tree_step.launches, mpx_step.launches))
         self.profile = Profile()
         self._host_reads = self.profile.counter("host_reads")
         self.start_lmwid = lm.word_id("<s>")
@@ -411,10 +416,9 @@ class NgramSearch(nn.Module):
                 if self.nlextree == 1:
                     self._tree_tab = self._tree_tables(g)
         else:
-            buf("_lcmap_flat", g.lcmap.reshape(-1))
-            buf("_lc_row_base", g.lc_row.astype(np.int64) * g.n_ci)
             buf("_lastci", g.lastci)
             buf("_entxs0", xs0)
+            self._mpx_tab = self._mpx_tables(g)
         # (tapes, lengths, last index) of the most recent batch; the tapes
         # stay on the device until a lattice needs them (`_host_tapes`).
         # `_last`: one utterance's host tapes + its length, for get_lattice.
@@ -544,6 +548,20 @@ class NgramSearch(nn.Module):
             self._la_entry_c, tuple(b.contiguous() for b in self._bands()),
             self.prune, self.log_beam, self.log_wbeam, self._pip32)
 
+    def _mpx_tables(self, g) -> mpx_step.Tables:
+        """The mpx step's channel tables (`mpx_step.Tables`)."""
+        for name, a in (("xs", g.static_xs),
+                        ("pc", np.maximum(g.prev_chan, 0)),
+                        ("word_of", g.word_of),
+                        ("lc_base", g.lc_row.astype(np.int64) * g.n_ci),
+                        ("ci_of", g.ci_of), ("lcmap", g.lcmap.reshape(-1))):
+            self._buf("_mpx_" + name, a, torch.int32)
+        return mpx_step.Tables(
+            self._mpx_xs, self._mpx_pc, self._has_prev, self._is_entry,
+            self._mpx_word_of, self._mpx_lc_base, self._mpx_ci_of,
+            self._mpx_lcmap, tuple(b.contiguous() for b in self._bands()),
+            self.prune, self.log_beam, self.log_wbeam, self._pip32)
+
     def _bgla_rows(self, h: torch.Tensor) -> torch.Tensor:
         """Bigram corrections for history words h [L] -> [L, R]: the base
         lw * bo(h) overlaid with the CSR excess entries by a scatter-max
@@ -659,16 +677,18 @@ class NgramSearch(nn.Module):
     # The mpx frame step (multiplexed left contexts).
     def _init_hmmc(self, B: int):
         """Initial HMM carry: all channels silent except the static <s>
-        entries; word-history payloads (hw2, hw1) start at (<s>, -1)."""
+        entries; word-history payloads (hw2, hw1) start at (<s>, -1).
+        alpha [B, C, S] f32 and the int32 payloads (tape slot, senone-
+        sequence row, hw2, hw1) [B, C, S]."""
         g = self.graph
         C, S = g.n_chan, g.n_emit_state
         dev = self.device
 
         def full(shape, val):
-            return torch.full(shape, val, dtype=torch.int64, device=dev)
+            return torch.full(shape, val, dtype=torch.int32, device=dev)
 
         alpha = torch.full((C, S), NEG_INF, dtype=torch.float32, device=dev)
-        xsr = self._static_xs[:, None].expand(C, S)
+        xsr = self._mpx_xs[:, None].expand(C, S)
         alpha, pays = hmm_enter(
             alpha, (full((C, S), -1), xsr, full((C, S), self.start_lmwid),
                     full((C, S), -1)),
@@ -681,66 +701,49 @@ class NgramSearch(nn.Module):
     def _step_mpx(self, hmmc, scores_t, t, valid_t, tape, la_t=None):
         """One frame of the mpx core for the whole batch (frame t, a 0-d
         int64 tensor, as in every step).  Writes the frame's tape rows into
-        `tape` (views of one row, `_write_tape`) and returns the new
-        carry."""
-        alpha0, hist0, xsr0, hw20, hw10 = hmmc
-        B = alpha0.shape[0]
+        `tape` (views of one row, `_write_tape`).  The channel update is
+        `mpx_step`'s (its kernels on the card): the exits before the
+        readout, the new carry after it, written into the carry's arrays,
+        which are returned."""
+        B = hmmc[0].shape[0]
         E = self.E
         W = self.vocab.n_word
         Vr = self.graph.n_rcvar
         neg = NEG_INF
+        tab = self._mpx_tab
+        rows = self._xs_rows(scores_t)                            # [B, n_xs, S]
+        st = mpx_step.step_exits(hmmc, rows, tab)
 
-        sen_c = torch.gather(self._xs_rows(scores_t), 1, xsr0)   # [B, C, S]
-        alpha, (hist, xsr, hw2, hw1), ex, (exh, _, exh2, exh1) = hmm_step(
-            alpha0, (hist0, xsr0, hw20, hw10), sen_c, self._bands())
-        alpha, ex = self._prune(alpha, ex, la_t)
-
-        # ---- word exits: per-variant readout [B, W, Vr] ----
-        exv = torch.where(self._exit_valid, ex[:, self._exit_tab_c], neg)
+        # ---- word exits: per-variant readout [B, W, Vr], word-exit beam ----
+        exv = torch.where(self._exit_valid, st.ex[:, self._exit_tab_c], neg)
+        if self.prune:
+            exv = torch.where(exv > st.best[:, None, None] + self.log_wbeam,
+                              exv, neg)
         wex = exv.amax(2)                                         # [B, W]
         vwin = exv.argmax(2)
         sel = torch.gather(self._exit_tab_c.expand(B, W, Vr), 2,
                            vwin[..., None])[..., 0]               # [B, W]
-        exh3 = torch.stack([exh, exh2, exh1], -1)                 # [B, C, 3]
-        wexh3 = torch.gather(exh3, 1, sel[..., None].expand(B, W, 3))
+        wexh3 = torch.gather(st.exh3, 1, sel[..., None].expand(B, W, 3))
 
         # ---- top-E word exits -> tape slots ----
         vals, wsel = topk2(wex, E)                                # [B, E]
         ok = (vals > neg * 0.5) & valid_t[:, None]
         slot_rc = torch.gather(exv, 1, wsel[..., None].expand(B, E, Vr))
         pe, prev_h2, prev_h1 = torch.gather(
-            wexh3, 1, wsel[..., None].expand(B, E, 3)).unbind(-1)
+            wexh3, 1, wsel[..., None].expand(B, E, 3)).long().unbind(-1)
         fil = self._is_filler[wsel]
         h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
         h1 = torch.where(fil, prev_h1, prev_h2)
         self._write_tape(tape, ok, wsel, vals, pe, h2, h1, slot_rc)
 
-        # ---- word entries (take effect next frame) ----
+        # ---- word entries (take effect next frame): score and payloads
+        # (tape slot, left-context CI phone, h2, h1) a word ----
         ent_w, ebp_w, estar = self._entries(t, ok, wsel, h1, h2, slot_rc)
         eh = torch.gather(torch.stack([self._lastci[wsel], h2, h1], -1), 1,
                           estar[..., None].expand(B, W, 3))
-        lcstar, eh2_w, eh1_w = eh.unbind(-1)
-
-        # Entry channel routing (score + mpx xs row by left context), and
-        # within-word propagation (in-degree <= 1: a gather).
-        wo = self._word_of
-        pc = self._prev_chan_c
-        is_entry = self._is_entry
-        ent_xs_c = self._lcmap_flat[self._lc_row_base + lcstar[:, wo]]
-        prop = torch.where(self._has_prev, ex[:, pc] + self._pip32, neg)
-        bprop = torch.where(self._has_prev, exh[:, pc], -1)
-        alpha, (hist, xsr, hw2, hw1) = hmm_enter(
-            alpha, (hist, xsr, hw2, hw1),
-            torch.where(is_entry, ent_w[:, wo], prop),
-            (torch.where(is_entry, ebp_w[:, wo], bprop),
-             torch.where(is_entry, ent_xs_c, self._static_xs),
-             torch.where(is_entry, eh2_w[:, wo], exh2[:, pc]),
-             torch.where(is_entry, eh1_w[:, wo], exh1[:, pc])))
-
-        # Padded frames are identity.
-        v = valid_t[:, None, None]
-        return tuple(torch.where(v, new, old) for new, old in zip(
-            (alpha, hist, xsr, hw2, hw1), hmmc))
+        ent_pay = torch.cat([ebp_w[..., None], eh], -1).to(torch.int32)
+        return mpx_step.prune_enter(hmmc, rows, st, ent_w, ent_pay, la_t,
+                                    valid_t, tab)
 
     def _entries(self, t, ok, wsel, h1, h2, slot_rc):
         """Single best cross-word entry per word (word_transition

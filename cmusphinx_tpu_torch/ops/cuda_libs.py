@@ -5,9 +5,9 @@ units (nvcc flags a compilation unit).  `build_all` compiles with nvcc for
 sm_90a, at first use, every library not built yet: the units of all of
 them at once, each library then linked into `build/kernels` at the
 repository root (git-ignored), named by a hash of its source, its flags
-and its units.  The kernels' modules (`fused_gmm`, `tree_step`, `ptm_parity`)
-load their library with ctypes after it.  Nothing is compiled when this module
-is imported.
+and its units.  The kernels' modules (`fused_gmm`, `tree_step`,
+`ptm_parity`, `mpx_step`) load their library with ctypes after it.
+Nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ LIBRARIES = {
                   [["-DK1_MODE=0"], ["-DK1_MODE=1"], ["-DK1_MODE=2"], []]),
     "tree_step": (_PKG / "csrc" / "tree_step.cu", [[]]),
     "ptm_parity": (_PKG / "csrc" / "ptm_parity.cu", [[]]),
+    "mpx_step": (_PKG / "csrc" / "mpx_step.cu", [[]]),
 }
 
 

@@ -19,7 +19,10 @@ alpha, payloads and senone scores are `[..., N, S]`, and the transitions
 come as the bands of `hmm_bands`, computed once per graph.  One form serves
 every search: the reference's channel-major, batch-major `[B, S, C]` and
 flat state-major `_sm` variants differ only in layout, chosen for the
-TPU's lanes.
+TPU's lanes.  Payloads keep their dtype (int32 in the mpx carry).  On the
+card the N-gram search's mpx step and one-copy tree step run these
+semantics in hand-written kernels (`ops/mpx_step.py`, `ops/tree_step.py`),
+whose plain versions compose the functions here.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 one-utterance decode through it, the other scorers, the frontend, the
 Decoder, the LM backends, the large-vocabulary searches, the streaming
 decode and the lattice results on the card against their CPU runs, the
-one-copy tree step's two kernels against their plain version, the PTM
-parity kernel against the CPU bit for bit and through `Decoder`, K1 on
-senone shards against the unsharded call, `tools fe` on the card
+one-copy tree step's and the mpx step's two kernels against their plain
+versions (the mpx step's whole decodes and streams against the CPU's on
+the same senone scores), the PTM parity kernel against the CPU bit for
+bit and through `Decoder`, K1 on senone shards against the unsharded call, `tools fe` on the card
 against `-platform cpu`, every search's frame loop through captured
 CUDA graphs against its eager blocks (bit-equal), and the frame loop's
 span holding its graphs' kernels in a profiler trace.  Skips where there
@@ -47,9 +48,11 @@ from cmusphinx_tpu_torch.ops import (ContinuousScorer, InterpolatedScorer,
                                      PTMScorer, SemiContinuousScorer)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
+from cmusphinx_tpu_torch.ops.hmm import hmm_step
 from cmusphinx_tpu_torch.train import bw
 from cmusphinx_tpu_torch.train.sentence_hmm import FlatModel
 from cmusphinx_tpu_torch.train.trainer import Trainer
+from test_torch_mpx_step import planted as planted_mpx
 from test_torch_tree_step import planted
 
 pytestmark = pytest.mark.cuda
@@ -1269,6 +1272,185 @@ def test_tree_step_launches_two_a_frame_across_replays(cuda):
         assert c == {"step_exits": F, "prune_enter": F}
 
 
+
+# ---- the mpx step's kernels (ops/mpx_step.py) ------------------------------
+
+MPX_CASES = {"mpx": {}, "mpx_lookahead": {"pl_window": 5, "pl_weight": 2.0},
+             "mpx_composite": {"rcmode": "composite", "lcmode": "mpx"},
+             "mpx_noprune": {"prune": False}}
+
+
+class _HostScores(torch.nn.Module):
+    """A CPU scorer's scores on the device its input is on: the card's and
+    the CPU's searches then read the same scores."""
+
+    def __init__(self, host):
+        super().__init__()
+        self.host = host
+
+    def score(self, x):
+        return self.host.score(x.cpu()).to(x.device)
+
+
+def _held_to_plain_mpx(monkeypatch):
+    """Make every call of the mpx step's two kernels also run their plain
+    version on the card, on copies of the same inputs, and assert the
+    results bit-equal; returns the calls' log (valid rows of each
+    `prune_enter`)."""
+    from cmusphinx_tpu_torch.ops import mpx_step
+    kernel_a, kernel_b = mpx_step.step_exits, mpx_step.prune_enter
+    log = []
+
+    def step_exits(carry, rows, tab):
+        got = kernel_a(carry, rows, tab)
+        assert _same_bits(got, mpx_step.step_exits_ref(carry, rows, tab))
+        return got
+
+    def prune_enter(carry, rows, st, ent_w, ent_pay, la_t, valid, tab):
+        want = mpx_step.prune_enter_ref(tuple(t.clone() for t in carry),
+                                        rows, st, ent_w, ent_pay, la_t,
+                                        valid, tab)
+        got = kernel_b(carry, rows, st, ent_w, ent_pay, la_t, valid, tab)
+        assert _same_bits(got, want)
+        log.append(valid.cpu())
+        return got
+
+    monkeypatch.setattr(mpx_step, "step_exits", step_exits)
+    monkeypatch.setattr(mpx_step, "prune_enter", prune_enter)
+    return log
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("case", sorted(MPX_CASES))
+def test_mpx_step_kernels_bit_equal_to_plain_on_decodes(cuda, case, B,
+                                                        monkeypatch):
+    """The SMALL fixture decoded on the card, eager, with fanout (Vr > 1)
+    and composite (Vr = 1) exits, the phone-loop lookahead, the beams off,
+    one utterance and a batch of 16: at every frame the two kernels'
+    results (the exits, their payloads and the best scores; the new carry)
+    equal the plain version's bit for bit, rows past an utterance's end
+    (not valid) included."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    s = _card_search(cuda, fx, **MPX_CASES[case])
+    assert s.graph.lc_mode == "mpx"
+    assert (s.graph.n_rcvar == 1) == (case == "mpx_composite")
+    log = _held_to_plain_mpx(monkeypatch)
+    s._graphs = False
+    s.decode_batch_cep(fx.ceps[:B], FeatPipeline(fx.feat_config(),
+                                                 device=cuda))
+    torch.cuda.synchronize()
+    valid = torch.stack(log)
+    assert len(log) == s._last_batch[0][0].shape[1] // s.E
+    assert valid.any() and (B == 1 or not valid.all())
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5])
+def test_mpx_step_kernels_bit_equal_to_plain_on_planted_ties(cuda, S):
+    """Both kernels against their plain version on the card, bit for bit,
+    on `planted` inputs (ties in the exits and in every transition,
+    channels and senone rows at NEG_INF, one row not valid), with the
+    beams on and off, with and without the phone-loop lookahead (taken as
+    a strided slice, as a block passes it)."""
+    from cmusphinx_tpu_torch.ops import mpx_step
+    B, C, n_xs, W, n_ci = 4, 3001, 257, 401, 11
+    carry, rows, tab, ent_w, ent_pay, la = planted_mpx(S, C, B, n_xs, W,
+                                                       n_ci, S)
+    carry = tuple(t.to(cuda) for t in carry)
+    rows, ent_w, ent_pay, la = (t.to(cuda) for t in (rows, ent_w, ent_pay,
+                                                     la))
+    tab = mpx_step.Tables(*(x.to(cuda) for x in tab[:8]),
+                          tuple(b.to(cuda) for b in tab.bands), *tab[9:])
+    valid = torch.tensor([True, False, True, True], device=cuda)
+    got = mpx_step.step_exits(carry, rows, tab)
+    assert _same_bits(got, mpx_step.step_exits_ref(carry, rows, tab))
+    stepped = hmm_step(carry[0], (), torch.gather(
+        rows, 1, carry[2].long()), tab.bands)[0]
+    la_block = torch.stack([la, la], 1)[:, 1]             # strided rows
+    for prune, l in [(True, la_block), (True, None), (False, None),
+                     (False, la_block)]:
+        t = tab._replace(prune=prune)
+        outs = [fn(tuple(c.clone() for c in carry), rows, got, ent_w,
+                   ent_pay, l, valid, t)
+                for fn in (mpx_step.prune_enter, mpx_step.prune_enter_ref)]
+        assert _same_bits(outs[0], outs[1])
+        assert _same_bits([c[1] for c in outs[0]], [c[1] for c in carry])
+        assert not torch.equal(outs[0][0], carry[0])
+        entered = outs[0][0][..., 0] != stepped[..., 0]
+        assert entered[:, tab.is_entry].any()
+        assert entered[:, ~tab.is_entry].any()
+
+
+@pytest.mark.parametrize("case", ["mpx", "mpx_composite", "mpx_lookahead"])
+def test_mpx_step_decodes_and_streams_equal_eager_and_cpu(cuda, case):
+    """The same senone scores (the CPU scorer's) through the mpx step on
+    the card, graphed and eager, and on the CPU: the batch's tapes
+    bit-equal across the three, and a stream's (37-frame pushes) tapes and
+    final hypothesis equal the CPU stream's."""
+    fx = fixture.build(0, size=fixture.SMALL)
+    host = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+    kw = MPX_CASES[case]
+    card = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, _HostScores(host),
+                       device=cuda, **kw)
+    cpu = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, host, device="cpu",
+                      **kw)
+    fp = FeatPipeline(fx.feat_config(), device="cpu")
+    feats = [fp.compute(c) for c in fx.ceps]
+    hyps, tapes = [], []
+    for s, graphs in ((card, True), (card, False), (cpu, False)):
+        s._graphs = graphs
+        hyps.append(s.decode_batch(feats))
+        tapes.append([t.cpu() for t in s._last_batch[0]])
+    card._graphs = True
+    assert card.graph_stats["captures"] > 0
+    for h, t in zip(hyps[1:], tapes[1:]):
+        _assert_same_hyps(hyps[0], h)
+        assert _same_bits(tapes[0], t)
+    (gh, gt, _), (ch, ct, _) = (_stream(s, feats[1]) for s in (card, cpu))
+    _assert_same_hyps([gh], [ch])
+    assert _same_bits([t.cpu() for t in gt], ct)
+
+
+def test_mpx_step_launches_two_a_frame_across_replays(cuda):
+    """`mpx_step.launches`, a counter of the N-gram search's block runner:
+    two launches (one of each kernel) a padded frame step of an mpx batch,
+    in the first decode (which captures its graphs), in the next (which
+    only replays them) and eager, and a stream's 50 a chunk; none in the
+    static and tree decodes, whose own kernels do not count here."""
+    from cmusphinx_tpu_torch.ops import mpx_step, tree_step
+    fx = fixture.build(0, size=fixture.SMALL)
+    s = _card_search(cuda, fx)
+    fp = FeatPipeline(fx.feat_config(), device=cuda)
+    counts = []
+    for graphs in (True, True, False):
+        s._graphs = graphs
+        mpx_step.launches.clear()
+        tree_step.launches.clear()
+        n = s.graph_stats["captures"]
+        s.decode_batch_cep(fx.ceps, fp)
+        torch.cuda.synchronize()
+        frames = s._last_batch[0][0].shape[1] // s.E
+        counts.append((dict(mpx_step.launches), frames,
+                       s.graph_stats["captures"] - n, dict(tree_step.launches)))
+    s._graphs = True
+    (first, F, caps, t1), (second, F2, caps2, t2), (eager, F3, _, t3) = counts
+    assert F == F2 == F3 > 0 and caps > 0 and caps2 == 0
+    assert t1 == t2 == t3 == {}
+    for c in (first, second, eager):
+        assert c == {"step_exits": F, "prune_enter": F}
+    feats = FeatPipeline(fx.feat_config(), device="cpu").compute(fx.ceps[1])
+    mpx_step.launches.clear()
+    _stream(s, feats)
+    chunks = -(-len(feats) // s.CHUNK)
+    assert dict(mpx_step.launches) == {"step_exits": chunks * s.CHUNK,
+                                       "prune_enter": chunks * s.CHUNK}
+    medium = fixture.build(0, size=fixture.MEDIUM)
+    fp = FeatPipeline(medium.feat_config(), device=cuda)
+    for kw in ({"lexmode": "flat"}, {"lexmode": "tree"}):
+        mpx_step.launches.clear()
+        _card_search(cuda, medium, **kw).decode_batch_cep(medium.ceps[:4], fp)
+        torch.cuda.synchronize()
+        assert not mpx_step.launches
+
 _FAILED_CAPTURE = """
 import sys, torch
 from cmusphinx_tpu_torch import fixture
@@ -1286,12 +1468,12 @@ class HostScores(torch.nn.Module):
 
 s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, HostScores(),
                 device="cuda")
-prune = s._prune
+entries = s._entries
 def reads_host(*a, **k):
-    out = prune(*a, **k)
+    out = entries(*a, **k)
     float(out[0].amax())
     return out
-s._prune = reads_host
+s._entries = reads_host
 try:
     h = s.decode(feats)
 except RuntimeError as e:

@@ -486,10 +486,12 @@ def test_port_has_every_module_of_the_reference():
     `ops/fused_gmm` with its CUDA source (`ops/tree_step`'s kernels port
     no TPU kernel: the reference's tree step was XLA-compiled jnp;
     `ops/ptm_parity`'s neither: the reference has no scorer for
-    pocketsphinx's PTM models; `ops/cuda_libs` builds the libraries)."""
+    pocketsphinx's PTM models, nor `ops/mpx_step`'s: its mpx step was
+    XLA-compiled jnp too; `ops/cuda_libs` builds the libraries)."""
     ref, port = _modules("cmusphinx_tpu"), _modules("cmusphinx_tpu_torch")
     assert ref - port == {"ops/pallas_gmm"}
     assert port - ref == {"convert", "fixture", "decode/graphs",
                           "decode/results", "ops/cuda_libs",
-                          "ops/fused_gmm", "ops/ptm_parity", "ops/tree_step",
+                          "ops/fused_gmm", "ops/mpx_step", "ops/ptm_parity",
+                          "ops/tree_step",
                           "parallel/dryrun", "parallel/senone_shard"}
