@@ -97,8 +97,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    search fed the card's senone scores (the counted decodes' exit tapes,
    integers equal, floats within rtol 1e-5; hypotheses equal).  The frame
    loop runs as captured CUDA graphs of 50-frame blocks (the default; one
-   graph a search); the 16 utterances again eager (`FsgSearch._graphs =
-   False`) and graphed, and the streams of STREAM_UTTS utterances in turns:
+   graph a search); the 16 utterances again eager
+   (`FsgSearch._runner.graphs = False`) and graphed, and the streams of STREAM_UTTS utterances in turns:
    exit tapes, hypotheses and partials bit-equal; each way's ms an
    utterance, ms a frame, xRT and push -> partial p50 / p99.
 17. align_allphone: Decoder.align of 4 utterances with their transcripts
@@ -192,7 +192,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    through captured CUDA graphs (NgramSearch's default on the card).
    Here the slice (300 words, B=16), the 5,000-word flat composite batch
    and the 20,000-word tree (B=16), and the mpx and tree streams run
-   graphed and eager (`NgramSearch._graphs = False`), in turns, on the
+   graphed and eager (`NgramSearch._runner.graphs = False`), in turns, on the
    same card: tapes bit-equal, hypotheses and DeviceNgram.calls equal;
    for each, ms a frame of the frame loop (`_viterbi` on the pass's
    senone scores), xRT, stream push -> partial p50 / p99, the device's
@@ -286,6 +286,8 @@ from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.decode import lattice as lattice_mod
 from cmusphinx_tpu_torch.decode.align import AlignSearch
 from cmusphinx_tpu_torch.decode.align_tp import _pred_table, align_time_parallel
+from cmusphinx_tpu_torch.decode.ngram_steps import (CompositeStep, MpxStep,
+                                                    TreeCopiesStep, TreeStep)
 from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
@@ -1223,7 +1225,7 @@ def check_tree_launches(name: str, search, counts: dict, steps: int) -> None:
     """`tree_step.launches` over `steps` padded frame steps of `search`:
     each kernel once a step where the search runs the one-copy tree step,
     else neither."""
-    tree = search._fast and search._tree and search.nlextree == 1
+    tree = isinstance(search.step, TreeStep)
     want = {"step_exits": steps, "prune_enter": steps} if tree else {}
     if counts != want:
         raise AssertionError(f"{name}: the tree step's kernels launched "
@@ -1234,8 +1236,8 @@ def check_mpx_launches(name: str, search, counts: dict, steps: int) -> None:
     """`mpx_step.launches` over `steps` padded frame steps of `search`:
     each kernel once a step where the search runs the mpx step, else
     neither."""
-    want = ({} if search._fast
-            else {"step_exits": steps, "prune_enter": steps})
+    want = ({"step_exits": steps, "prune_enter": steps}
+            if isinstance(search.step, MpxStep) else {})
     if counts != want:
         raise AssertionError(f"{name}: the mpx step's kernels launched "
                              f"{counts} over {steps} frame steps, not {want}")
@@ -1435,7 +1437,7 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
 # ----------------------------------------------------------------------
 # Phase "graphs": the N-gram frame loop through captured CUDA graphs
 # (the default, which every phase above ran) against the eager loop
-# (`NgramSearch._graphs = False`) on the same card, in turns.
+# (`NgramSearch._runner.graphs = False`) on the same card, in turns.
 
 def device_busy_ms(prof) -> tuple:
     """(device events, ms the card was busy): the union of the intervals
@@ -1454,13 +1456,13 @@ def device_busy_ms(prof) -> tuple:
 
 @contextlib.contextmanager
 def frames_graphed(search, graphs: bool):
-    """A search's frame loop graphed or eager (`_graphs = False`) for the
-    block's duration."""
-    search._graphs = graphs
+    """A search's frame loop graphed or eager (`_runner.graphs = False`)
+    for the block's duration."""
+    search._runner.graphs = graphs
     try:
         yield
     finally:
-        search._graphs = True
+        search._runner.graphs = True
 
 
 @contextlib.contextmanager
@@ -1588,7 +1590,7 @@ def graph_batch_cell(search, fp, fx, card: str) -> dict:
            "block_frames": search._block_len(len(Ts), frames),
            "audio_s": fx.audio_seconds,
            "captures": stats["captures"], "capture_s": stats["capture_s"],
-           "graphs_cached": len(search._graph_cache),
+           "graphs_cached": len(search._runner.cache),
            "replayed_without_capture":
                search.graph_stats["captures"] == before,
            "replay_sync_free": sync_free,
@@ -1634,7 +1636,7 @@ def graph_stream_cell(search, feats_list, utts, card: str) -> dict:
     g, e = res["graphed"], res["eager"]
     return {"card": card, "utterances": len(utts), "audio_s": audio_s,
             "chunk_frames": T_STREAM,
-            "graphs_cached": len(search._graph_cache),
+            "graphs_cached": len(search._runner.cache),
             "tapes_bit_equal": all(np.array_equal(a, b) for a, b in
                                    zip(g.pop("tapes"), e.pop("tapes"))),
             "finals_equal": g.pop("finals") == e.pop("finals"),
@@ -1646,7 +1648,7 @@ def graph_shapes(search) -> list:
     """[batch, block frames, side-table frames (static and tree steps;
     else None)] of each graph the search holds."""
     return [[*g.inputs[0].shape[:2], g.carry[2].shape[1] // search.E
-             if search._fast else None]
+             if isinstance(search.step, CompositeStep) else None]
             for g in search._runner.cache.values()]
 
 
@@ -1714,7 +1716,7 @@ def graph_traffic_cell(search, fp, seq, card: str, one=None) -> dict:
            "frames": [max(len(c) for c in ceps) for _, ceps in seq],
            "padded_frames": sum(-(-max(len(c) for c in ceps) // 100) * 100
                                 for _, ceps in seq),
-           "graphs_cached": len(search._graph_cache),
+           "graphs_cached": len(search._runner.cache),
            "graph_shapes": graph_shapes(search),
            "earlier_graphs": earlier,
            "warm_replays_only": res["graphed_warm"]["captures"] == 0}
@@ -2172,7 +2174,7 @@ def phase_grammar(dev, fx, tmp: str, holds: Holds) -> dict:
     `tmp`, which outlives the CPU holds): per grammar, 16 utterances
     through the Decoder, then the FSG stream of utterance 0 (the counted
     main path, graphed: the default); then the same 16 and the streams of
-    utterances 0 .. STREAM_UTTS-1 eager (`_graphs = False`) and graphed
+    utterances 0 .. STREAM_UTTS-1 eager (`_runner.graphs = False`) and graphed
     again, in turns, every exit tape bit-equal."""
     out = {"phase": "grammar", "grammars": {}}
     launches = 0
@@ -2318,7 +2320,7 @@ def same_alignment(a, b) -> bool:
 
 def phase_align_allphone(dev, fx) -> dict:
     """ALIGN_UTTS alignments through the Decoder (counted, graphed: the
-    default) held to the CPU's, then eager (`_graphs = False`) and
+    default) held to the CPU's, then eager (`_runner.graphs = False`) and
     graphed again (warm), bit-equal; an -allphone decode against the
     CPU's."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -2429,7 +2431,8 @@ def phase_ngram_options(dev, fx, spec, large, large_spec, holds: Holds
     tree = NgramSearch(large.lm, large.dict, large.mdef, large.tmat,
                        ContinuousScorer(large.gauden, large.ln_mixw,
                                         device=dev), device=dev, **tkw)
-    if not (tree._tree and tree.nlextree == TREE_COPIES):
+    if not (isinstance(tree.step, TreeCopiesStep)
+            and tree.nlextree == TREE_COPIES):
         raise AssertionError("the 20,000-word graph is not a tree")
     ceps = large.ceps[:COPIES_UTTS]
     sub = dataclasses.replace(large, ceps=ceps,

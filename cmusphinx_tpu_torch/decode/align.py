@@ -40,7 +40,7 @@ from ..models.mdef import BAD_SENID, Mdef
 from ..models.ngram import NgramModel
 from ..models.tmat import TransitionMatrices
 from .graphs import BlockRunner, pad_frames
-from .ngram_search import _argmax_first
+from .ngram_steps import _argmax_first
 from .results import Segment
 
 NEG = -1.0e30
@@ -56,9 +56,8 @@ class PhoneSeg:
 
 
 class AlignSearch:
-    """Forced aligner over a senone scorer.  `_graphs = False`, a private
-    attribute for the tests and `chip_smoke.py`, runs the blocks eagerly
-    on the card."""
+    """Forced aligner over a senone scorer.  `_runner.graphs = False` runs
+    the blocks eagerly on the card."""
 
     # Frames a block (one graph a state bucket whatever the length).
     BLOCK = 50
@@ -79,7 +78,6 @@ class AlignSearch:
         self.scorer = scorer
         self.device = torch.device(device)
         self.d2p = Dict2Pid(mdef, d)
-        self._graphs = True
         self._runner = BlockRunner()
 
     # The runner's counters (captures, capture_s, replays).
@@ -213,8 +211,7 @@ class AlignSearch:
         valid = torch.arange(F, device=ll.device) < n
         bps = torch.empty((F, Sp), dtype=torch.int64, device=ll.device)
         a, _ = self._runner.scan(self._block, (a, M), (ll, valid), (bps,),
-                                 1, self.BLOCK, self._graphs and ll.is_cuda,
-                                 row0=0)
+                                 1, self.BLOCK, row0=0)
         return a, bps
 
     @torch.inference_mode()

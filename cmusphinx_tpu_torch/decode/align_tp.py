@@ -32,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ngram_search import _argmax_first
+from .ngram_steps import _argmax_first
 
 NEG = -1.0e30
 

@@ -57,7 +57,7 @@ from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
 from ..utils.config import Arg, Config
 from .graphs import BlockRunner, pad_frames
 from .lexgraph import build_word_graph
-from .ngram_search import NgramSearch, _argmax_first
+from .ngram_steps import DeviceTables, Step, _argmax_first
 from .results import Hypothesis, Segment
 
 FSG_ARGS = [
@@ -76,9 +76,8 @@ class FsgSearch(nn.Module):
     `device`.
 
     On the card the frame loop runs through captured CUDA graphs of a
-    block of frames.  `_graphs = False`, a private attribute for the tests
-    and `chip_smoke.py`, runs the same blocks eagerly there, to compare
-    the two."""
+    block of frames; `_runner.graphs = False` runs the same blocks eagerly
+    there, to compare the two."""
 
     CHUNK = 50
     FRAME_BUCKET = 100
@@ -156,49 +155,35 @@ class FsgSearch(nn.Module):
         self._ent0 = np.asarray(st0[self.src] + self.entry_lp, np.float32)
         self._finw = np.asarray(self.closure[self.dst, fsg.final_state],
                                 np.float32)
-        entc0 = np.full(g.n_chan, NEG_INF, np.float32)
-        entc0[g.is_entry] = self._ent0[g.word_of[g.is_entry]]
         xs0 = g.static_xs.copy()
         xs0[g.is_entry] = g.lcmap[g.lc_row[g.is_entry], self.sil_ci]
 
+        self._graph_tables(g, hmm_bands(tmat.log_tp[g.tmat_idx]), self._ent0)
         buf = self._buf
-        buf("_sing_sen", g.sing_sen)
-        buf("_sing_valid", g.sing_valid)
-        buf("_comp_valid", g.comp_valid)
-        groups = g.comp_groups or [g.comp_mem]
-        for i, cg in enumerate(groups):
-            buf(f"_comp_group{i}", cg)
-        self._n_comp_groups = len(groups)
         buf("_static_xs", g.static_xs)
         buf("_word_of", g.word_of)
-        buf("_is_entry", g.is_entry)
         buf("_lcmap_flat", g.lcmap.reshape(-1))
         buf("_lc_row_base", g.lc_row.astype(np.int64) * g.n_ci)
         buf("_exit_valid", g.exit_tab >= 0)
         buf("_exit_tab_c", np.maximum(g.exit_tab, 0))
         buf("_rcv", g.rssid[:, g.firstci])                  # [K, K]
         buf("_rssid_sil", g.rssid[:, self.sil_ci])         # [K]
-        buf("_has_prev", g.prev_chan >= 0)
         buf("_prev_chan_c", np.maximum(g.prev_chan, 0))
         buf("_lastci", g.lastci)
         buf("_W", self._W_np, torch.float32)
-        buf("_entc0", entc0, torch.float32)
         buf("_entxs0", xs0)
-        for name, b in zip(("d0", "d1", "d2", "elast", "eprev"),
-                           hmm_bands(tmat.log_tp[g.tmat_idx])):
-            buf("_band_" + name, b, torch.float32)
         self._last = None
-        self._graphs = True
         self._runner = BlockRunner()
 
     # The runner's counters (captures, capture_s, replays).
     graph_stats = property(lambda self: self._runner.stats)
 
-    # The graph's tables are the N-gram search's: the same buffers, the
-    # same readers.
-    _buf = NgramSearch._buf
-    _bands = NgramSearch._bands
-    _xs_rows = NgramSearch._xs_rows
+    # The graph's tables are the N-gram steps': the same buffers, the same
+    # readers.
+    _buf = DeviceTables._buf
+    _graph_tables = Step._graph_tables
+    _bands = Step._bands
+    _xs_rows = Step._xs_rows
 
     # ------------------------------------------------------------------
     def _init_carry(self):
@@ -293,8 +278,7 @@ class FsgSearch(nn.Module):
                 torch.empty((n, K), dtype=torch.float32, device=dev),
                 torch.empty((n, K, Vr), dtype=torch.float32, device=dev))
         carry = self._runner.scan(self._block, carry, (scores, valid), tape,
-                                  t0, self.BLOCK,
-                                  self._graphs and scores.is_cuda, row0=0)
+                                  t0, self.BLOCK, row0=0)
         return carry, tape
 
     def _run(self, carry, scores: torch.Tensor, t0: int, T: int):

@@ -114,9 +114,12 @@ class BlockRunner:
     `stats` (captures, their seconds, replays).  `axis` is the frame axis
     of the per-frame inputs and of the tapes; `counters` are host
     `Counter`s that a block updates (the N-gram search's LM calls): a
-    capture records one block's updates and each replay adds them."""
+    capture records one block's updates and each replay adds them.
+    `graphs = False` runs the blocks eagerly on the card too, to compare
+    the two."""
 
     def __init__(self, axis: int = 0, counters: Iterable[Counter] = ()):
+        self.graphs = True
         self.axis = axis
         self.counters = tuple(counters)
         self.cache: OrderedDict = OrderedDict()
@@ -129,21 +132,22 @@ class BlockRunner:
         self.pool = None
 
     def scan(self, block: Callable, carry: tuple, inputs: Sequence,
-             tape: Sequence[torch.Tensor], t0: int, K: int, graphed: bool,
+             tape: Sequence[torch.Tensor], t0: int, K: int,
              row0: Optional[int] = None) -> tuple:
         """Frames t0 .. t0+n-1 (n: the inputs' length along `axis`) in
         blocks of K frames (the last one shorter where K does not divide
         n); each block writes its rows of the tape, from row `row0`
-        (default t0).  Returns the carry.  With `graphed`, each block is a
-        replay of a captured graph (`_graphed`); else it runs eagerly,
-        writing views of the tape."""
+        (default t0).  Returns the carry.  With `graphs` on and the inputs
+        on the card, each block is a replay of a captured graph
+        (`_graphed`); else it runs eagerly, writing views of the tape."""
         with span("frame_loop"):
             ax = self.axis
-            n = next(x for x in inputs if x is not None).shape[ax]
+            x0 = next(x for x in inputs if x is not None)
+            n = x0.shape[ax]
             row0 = t0 if row0 is None else row0
             if n == 0:
                 return carry
-            if graphed:
+            if self.graphs and x0.is_cuda:
                 return self._graphed(block, carry, inputs, tape, t0, K,
                                      row0, n)
             dev = carry[0].device

@@ -1,39 +1,13 @@
 """N-gram (trigram) decoder over a senone scorer: flat and prefix-tree
 lexicons with exact or composite cross-word contexts.
 
-Port of `cmusphinx_tpu/decode/ngram_search.py` (`NGRAM_ARGS`, `NgramVocab`,
-`topk2`, `NgramSearch.__init__`, `_xscores_all`, `_init_hmmc`, `_make_core`,
-`_expand_block_batched`, `_init_hmmc_static`, the static cores
-`_make_core_static` / `_make_core_static_batched`, `_setup_tree_bgla`,
-`_bgla_rows`, `_init_hmmc_tree`, the tree cores `_make_core_tree` (any
-number of copies) / `_make_core_tree_batched`, the phone-loop lookahead
-`pl_window`, `device_decode`, `device_decode_batched`,
-`device_backtrace`, `_hyp_from_chase`, `decode`, `decode_batch`,
-`decode_batch_cep`, the streaming decode `stream_start` / `stream_push` /
-`stream_partial` / `stream_end`, and the host results layer: the readout
-`_final_slot` / `_backtrace`, `get_lattice` and bestpath rescoring).  See
-the reference's docstrings for the search's semantics.  The graph picks
-one of three frame steps:
-
-- `_step_mpx`: multiplexed left contexts (`lcmode=mpx`), fanout or
-  composite right contexts; the senone row of an entry channel rides the
-  Viterbi argmax as a payload, and so do the LM histories.  Its channel
-  update is `ops/mpx_step.py`: on the card two CUDA kernels around the
-  word-exit readout, each state reading its senone score through its own
-  row of the frame's extended-senone-sequence rows (no expansion); the
-  readout, the tape and the per-word entries stay here.
-- `_step_static`: composite left contexts and a flat lexicon; every
-  channel's senones are static, so they are expanded for a block of frames
-  at once (`_expand_block`); histories live in a per-slot side-table.
-- `_step_tree`: the prefix-tree lexicon (composite contexts); a unigram
-  lookahead smear inside the tree, an optional bigram correction at the
-  roots, the exact trigram for a shortlist of exits, and an 8-bit entry
-  age as the token payload.  Its channel update is `ops/tree_step.py`:
-  on the card two CUDA kernels around the exit readout, each channel
-  reading its senone row from the frame's extended-senone-sequence rows
-  (no expansion).  With `nlextree` N > 1, `_step_tree_copies` runs N
-  copies of the tree `[B, N, C, S]`: copy n takes the n-th best
-  history-distinct re-entry, and the payload is the tape slot.
+Port of `cmusphinx_tpu/decode/ngram_search.py`: the search, its cores
+(`ngram_steps.py`: one frame step a kind, which `_pick_step` alone
+chooses, and their shared word-exit readout), the phone-loop lookahead
+`pl_window`, the device decode and backtrace, the batch and streaming
+decodes, and the host results layer (the stream's readout, lattices and
+bestpath rescoring).  See the reference's docstrings for the search's
+semantics.
 
 `pl_window` W > 0 adds the CI-phone lookahead to every channel's best
 score before the channel beam, in every step: the CI phones' best senone
@@ -51,20 +25,16 @@ What differs in form, not in result:
   the static and tree states out `[B, S, C]` or flat state-major for the
   TPU's lanes); a single utterance is a batch of one.  One step serves
   what the reference splits into its unbatched and batched cores.
-- The frame scan runs in blocks of frames (`_block`: the static and
-  tree steps' senone rows, then a frame step per frame, the frame
-  index a 0-d tensor advanced on the device).  On the card each block is
-  a captured CUDA graph (`graphs.BlockRunner`), captured once per shape
-  and replayed block after block: the counterpart of the reference's
+- The frame scan runs in blocks of frames (`_block`), the frame index a
+  0-d tensor advanced on the device.  On the card each block is a
+  captured CUDA graph (`graphs.BlockRunner`), captured once per shape and
+  replayed block after block: the counterpart of the reference's
   `jit`-compiled `lax.scan`.  On the CPU the same block runs eagerly.
 - Gathers are plain gathers; the reference's one-hot matmul gathers, its
   flat state-major layout and its 128-lane root padding were TPU devices.
 - Top-k is a stable descending sort, which keeps `jax.lax.top_k`'s
   lowest-index-first order on ties; `topk2` keeps the reference's
   two-stage tie rule.  The tape is the reference's, slot for slot.
-- Payloads ride as int32 in the mpx carry, as int64 in the static step
-  and the tree copies, and as uint8 for the one-copy tree's entry age;
-  the tapes are stored as int32.
 
 A stream decodes one utterance (a batch of one) in chunks of `CHUNK`
 frames through the same frame steps, its carry and tape on the device
@@ -104,13 +74,16 @@ from ..models.ngram import NgramModel
 from ..models.ngram_device import DeviceNgram
 from ..models.tmat import TransitionMatrices
 from ..ops import mpx_step, tree_step
-from ..ops.hmm import NEG_INF, hmm_bands, hmm_enter, hmm_step
+from ..ops.hmm import NEG_INF, hmm_bands
 from ..utils import native
 from ..utils.config import Arg, Config
 from ..utils.profile import Profile, span
 from .graphs import GRAPH_CACHE, BlockRunner  # noqa: F401 (read by tests)
 from .lattice import LatNode, Lattice
 from .lexgraph import build_word_graph
+from .ngram_steps import (DeviceTables, MpxStep, Readout, StaticStep, Step,
+                          TreeCopiesStep, TreeStep)
+from .ngram_steps import topk2  # noqa: F401 (imported from here)
 from .results import Hypothesis, Segment
 
 NGRAM_ARGS = [
@@ -175,46 +148,6 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _argmax_first(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Index of the maximum along `dim`, the lowest on ties
-    (`jnp.argmax`'s rule), on any device."""
-    m = x.amax(dim, keepdim=True)
-    n = x.shape[dim]
-    shape = [1] * x.dim()
-    shape[dim] = n
-    idx = torch.arange(n, device=x.device).view(shape)
-    return torch.where(x == m, idx, n).amin(dim)
-
-
-def _top_k(x: torch.Tensor, k: int):
-    """`jax.lax.top_k` along the last axis: descending, lowest index first
-    on ties (a stable sort; `torch.topk` leaves the tie order open)."""
-    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
-def topk2(x: torch.Tensor, k: int, bs: int = 128):
-    """The reference's exact two-stage top-k along the last axis.  Up to
-    M = 4*k*bs elements it is `_top_k`.  Above, the top-k of the per-block
-    maxima picks k blocks, their indices are sorted back to index order,
-    and their elements are re-ranked: ties then keep lowest-index priority
-    among the selected blocks, which differs from a direct top-k only when
-    the k-th value ties across more than k blocks."""
-    M = x.shape[-1]
-    nb = (M + bs - 1) // bs
-    if nb <= k or M <= 4 * k * bs:
-        return _top_k(x, k)
-    lead = x.shape[:-1]
-    pad = nb * bs - M
-    if pad:
-        x = torch.cat([x, x.new_full(lead + (pad,), NEG_INF)], -1)
-    blk = x.reshape(lead + (nb, bs))
-    _, bi = _top_k(blk.amax(-1), k)
-    bi = bi.sort(-1).values
-    sel = blk.gather(-2, bi[..., None].expand(lead + (k, bs)))
-    tv, ti = _top_k(sel.reshape(lead + (k * bs,)), k)
-    return tv, bi.gather(-1, ti // bs) * bs + ti % bs
-
 
 class NgramVocab:
     """Search vocabulary: dict words in the LM + fillers, with LM ids."""
@@ -248,14 +181,12 @@ class NgramVocab:
         self.n_word = len(words)
 
 
-class NgramSearch(nn.Module):
-    """Trigram decoder over a senone scorer.  The graph's tables, the
-    transition matrices and the LM tables are buffers on `device`.
 
-    On the card the frame loop runs through captured CUDA graphs of a
-    block of frames (`_scan`).  `_graphs = False`, a private attribute
-    for the tests and `chip_smoke.py`, runs the same blocks eagerly
-    there, to compare the two."""
+class NgramSearch(DeviceTables):
+    """Trigram decoder over a senone scorer; its tables, most of them its
+    frame step's (`step`), are buffers on `device`.  On the card the frame
+    loop runs through captured CUDA graphs of a block of frames (`_scan`);
+    `_runner.graphs = False` runs them eagerly, to compare the two."""
 
     FRAME_BUCKET = 100
 
@@ -263,11 +194,10 @@ class NgramSearch(nn.Module):
                  tmat: TransitionMatrices, scorer: nn.Module,
                  config: Optional[Config] = None, *,
                  device: torch.device | str = "cuda", **kwargs):
-        super().__init__()
+        super().__init__(torch.device(device))
         cfg = (config.copy() if config else Config(NGRAM_ARGS)).register(NGRAM_ARGS)
         cfg.update(**kwargs)
         self.config = cfg
-        self.device = torch.device(device)
         # Host-side constants stay float64, as in the reference; the device
         # arithmetic uses their float32 roundings (the `_*32` copies).
         self.lw = float(cfg["lw"])
@@ -278,7 +208,6 @@ class NgramSearch(nn.Module):
             _f32(self.lw), _f32(self.log_wip), _f32(log_pip))
         self.silpen = log_pip + math.log(float(cfg["silprob"]))
         self.fillpen = log_pip + math.log(float(cfg["fillprob"]))
-        self.E = int(cfg["maxwpf"])
         self.prune = bool(cfg["prune"])
         self.log_beam = _f32(math.log(float(cfg["beam"])))
         self.log_wbeam = _f32(math.log(float(cfg["wbeam"])))
@@ -290,42 +219,8 @@ class NgramSearch(nn.Module):
         self.mdef = mdef
         self.scorer = scorer
         self.vocab = v = NgramVocab(lm, d)
-        rc_mode = str(cfg["rcmode"])
-        if rc_mode == "auto":
-            rc_mode = "fanout" if v.n_word < 1000 else "composite"
-        self.rc_mode = rc_mode
-        lc_mode = str(cfg["lcmode"])
-        if lc_mode == "auto":
-            lc_mode = "mpx" if rc_mode == "fanout" else "composite"
-        lex_mode = str(cfg["lexmode"])
-        if lex_mode == "auto":
-            lex_mode = ("tree" if v.n_word >= 10000
-                        and rc_mode == "composite"
-                        and lc_mode == "composite" else "flat")
-        # Unigram lookahead for the tree smear (0 for fillers: they pay
-        # their own penalties at the exit readout).
-        ugla = None
-        if lex_mode == "tree":
-            ugla = np.where(v.is_filler, 0.0,
-                            np.asarray(lm.ug_prob)[np.maximum(v.lmwid, 0)])
-        g = self.graph = build_word_graph(v.dict_wid, d, mdef,
-                                          Dict2Pid(mdef, d), rc_mode=rc_mode,
-                                          lc_mode=lc_mode, lex_mode=lex_mode,
-                                          ug_lookahead=ugla)
-        self._tree = g.lex_mode == "tree"
-        self.nlextree = max(1, int(cfg["nlextree"])) if self._tree else 1
-        # Static senones (composite left contexts): the frame-block
-        # expansion, and a pure shift for within-word propagation when
-        # every chain channel's predecessor is the previous channel.
-        self._fast = g.lc_mode == "composite"
-        chain = np.arange(g.n_chan) - 1
-        self._chain_shift = bool(
-            np.all((g.prev_chan == -1) | (g.prev_chan == chain)))
-        self.E = min(self.E, v.n_word)
+        self.E = min(int(cfg["maxwpf"]), v.n_word)
         self.dlm = DeviceNgram(lm, device=self.device)
-        self._graphs = True
-        self._runner = BlockRunner(axis=1, counters=(
-            self.dlm.calls, tree_step.launches, mpx_step.launches))
         self.profile = Profile()
         self._host_reads = self.profile.counter("host_reads")
         self.start_lmwid = lm.word_id("<s>")
@@ -346,79 +241,19 @@ class NgramSearch(nn.Module):
                 ent0[k] = self.lw * self.lm.bg_score(
                     self.start_lmwid, int(v.lmwid[k])) + self.log_wip
         self._ent0, self._fil_pen_np = ent0, fp      # host lattice terms
-        entc0 = np.full((g.n_chan,), NEG_INF, np.float32)
-        if self._tree:
-            # Tree entries carry only the lookahead smear; the exact LM,
-            # P(w|<s>) included, is applied at the exit readout from the
-            # (<s>, -1) history.
-            self._setup_tree_bgla(g, v)
-            entc0[g.is_entry] = self.lw * g.la[g.is_entry]
-            if self.use_bgla:
-                entc0[self._roots_np] += self._corr0_np
-        else:
-            entc0[g.is_entry] = ent0[g.word_of[g.is_entry]]
-        xs0 = g.static_xs.copy()
-        xs0[g.is_entry] = g.lcmap[g.lc_row[g.is_entry], self.sil_ci]
+        self.step = self._pick_step(cfg, tmat)
+        self.nlextree = self.step.copies
+        self._runner = BlockRunner(axis=1, counters=(
+            self.dlm.calls, tree_step.launches, mpx_step.launches))
 
-        buf = self._buf
-        buf("_sing_sen", g.sing_sen)                              # [n_sing, S]
-        buf("_sing_valid", g.sing_valid)
-        buf("_comp_valid", g.comp_valid)                          # [n_comp, S]
-        groups = g.comp_groups or [g.comp_mem]
-        for i, cg in enumerate(groups):                           # [n_i, S, U_i]
-            buf(f"_comp_group{i}", cg)
-        self._n_comp_groups = len(groups)
-        buf("_static_xs", g.static_xs)
-        buf("_word_of", g.word_of)
-        buf("_is_entry", g.is_entry)
-        buf("_exit_valid", g.exit_tab >= 0)                       # [W, Vr]
-        buf("_exit_tab_c", np.maximum(g.exit_tab, 0))
-        buf("_rssid", g.rssid)                                    # [W, n_ci]
-        buf("_firstci", g.firstci)
-        buf("_rssid_sil", g.rssid[:, self.sil_ci])                # [W]
-        buf("_has_prev", g.prev_chan >= 0)
-        buf("_ci_of", g.ci_of)
+        g = self.graph
+        self._buf("_rssid_sil", g.rssid[:, self.sil_ci])          # [W]
+        self._buf("_is_finish", v.is_finish)
         # Phone-loop lookahead: each CI phone's senone row.
         ci_sen = mdef.sseq[mdef.phone_ssid[: mdef.n_ciphone]].astype(np.int64)
         bad = int(np.int32(np.uint16(0xFFFF)))
-        buf("_ci_sen", np.where(ci_sen == bad, 0, ci_sen))
-        buf("_ci_sen_valid", ci_sen != bad)
-        buf("_prev_chan_c", np.maximum(g.prev_chan, 0))
-        buf("_lmwid", v.lmwid)
-        buf("_lmwid_c", np.maximum(v.lmwid, 0))
-        buf("_is_filler", v.is_filler)
-        buf("_is_finish", v.is_finish)
-        buf("_fil_pen", fp)
-        buf("_entc0", entc0)
-        # Offsets of a frame's rows in the history side-table and (the tree
-        # with bigram lookahead) the entry-correction side-table.
-        buf("_ar_E", np.arange(self.E))
-        if self._tree and self.use_bgla:
-            buf("_ar_ct", np.arange(self.nlextree * self._n_roots))
-        for name, b in zip(("d0", "d1", "d2", "elast", "eprev"),
-                           hmm_bands(tmat.log_tp[g.tmat_idx])):
-            buf("_band_" + name, b, torch.float32)
-        if self._fast:
-            buf("_exit_col", np.maximum(g.exit_tab[:, 0], 0))
-            if self._tree:
-                # lw-scaled lookahead tables: per-channel smear, telescoping
-                # within-word delta, per-word exit correction (lw * ug(w);
-                # 0 for fillers).
-                la = self.lw * g.la.astype(np.float64)
-                delta = np.where(g.prev_chan >= 0,
-                                 la - la[np.maximum(g.prev_chan, 0)], 0.0)
-                buf("_la_entry_c", la.astype(np.float32))
-                buf("_la_delta_c", delta.astype(np.float32))
-                buf("_la_word_lw", (self.lw * g.la_word).astype(np.float32))
-                buf("_psel_bonus", np.where(v.is_filler, fp,
-                                            np.float32(self.log_wip)),
-                    torch.float32)
-                if self.nlextree == 1:
-                    self._tree_tab = self._tree_tables(g)
-        else:
-            buf("_lastci", g.lastci)
-            buf("_entxs0", xs0)
-            self._mpx_tab = self._mpx_tables(g)
+        self._buf("_ci_sen", np.where(ci_sen == bad, 0, ci_sen))
+        self._buf("_ci_sen_valid", ci_sen != bad)
         # (tapes, lengths, last index) of the most recent batch; the tapes
         # stay on the device until a lattice needs them (`_host_tapes`).
         # `_last`: one utterance's host tapes + its length, for get_lattice.
@@ -427,216 +262,49 @@ class NgramSearch(nn.Module):
         self._last: Optional[tuple] = None
         self._lm_arrays: Optional[native.LmArrays] = None  # built at first use
 
-    def _buf(self, name: str, a, dtype=None) -> None:
-        """Register host array `a` as a buffer on the search's device;
-        narrow integers widen to int64 (torch's index type)."""
-        t = torch.as_tensor(np.asarray(a))
-        if dtype is not None:
-            t = t.to(dtype)
-        elif t.dtype in (torch.int16, torch.int32):
-            t = t.long()
-        self.register_buffer(name, t.to(self.device), persistent=False)
+    def _pick_step(self, cfg: Config, tmat: TransitionMatrices) -> Step:
+        """The `auto` mode rules, the word graph (`graph`) and its frame
+        step: the one place that reads the modes that choose a step."""
+        v = self.vocab
+        rc_mode = str(cfg["rcmode"])
+        if rc_mode == "auto":
+            rc_mode = "fanout" if v.n_word < 1000 else "composite"
+        self.rc_mode = rc_mode
+        lc_mode = str(cfg["lcmode"])
+        if lc_mode == "auto":
+            lc_mode = "mpx" if rc_mode == "fanout" else "composite"
+        lex_mode = str(cfg["lexmode"])
+        if lex_mode == "auto":
+            lex_mode = ("tree" if v.n_word >= 10000
+                        and rc_mode == "composite"
+                        and lc_mode == "composite" else "flat")
+        # Unigram lookahead for the tree smear (0 for fillers: they pay
+        # their own penalties at the exit readout).
+        ugla = None
+        if lex_mode == "tree":
+            ug = np.asarray(self.lm.ug_prob)
+            ugla = np.where(v.is_filler, 0.0, ug[np.maximum(v.lmwid, 0)])
+        g = self.graph = build_word_graph(v.dict_wid, self.dict, self.mdef,
+                                          Dict2Pid(self.mdef, self.dict),
+                                          rc_mode=rc_mode, lc_mode=lc_mode,
+                                          lex_mode=lex_mode, ug_lookahead=ugla)
+        ro = Readout(g, v, self.dlm, self._fil_pen_np, E=self.E, lw=self.lw,
+                     lw32=self._lw32, wip32=self._wip32,
+                     start_lmwid=self.start_lmwid, prune=self.prune,
+                     log_wbeam=self.log_wbeam, device=self.device)
+        bands = hmm_bands(tmat.log_tp[g.tmat_idx])
+        kw = dict(pip=self._pip32, log_beam=self.log_beam, device=self.device)
+        if g.lc_mode == "mpx":
+            return MpxStep(g, ro, bands, self._ent0, self.sil_ci, **kw)
+        if g.lex_mode == "flat":
+            return StaticStep(g, ro, bands, self._ent0, **kw)
+        tree = (self.lm, v, str(cfg["treela"]) == "bg")
+        n = max(1, int(cfg["nlextree"]))
+        if n > 1:
+            return TreeCopiesStep(g, ro, bands, *tree, n, **kw)
+        return TreeStep(g, ro, bands, *tree, **kw)
 
     # ------------------------------------------------------------------
-    def _setup_tree_bgla(self, g, v) -> None:
-        """Bigram-lookahead tables for the tree smear (host numpy, as the
-        reference's `_setup_tree_bgla`): for every re-entry history h, a
-        per-root correction corr(h, r) = lw * (max over the subtree's words
-        of bg(h, w) - ugmax(r)), stored as a CSR over (h, r) pairs with an
-        explicit successor (`_bgla_ptr/_root/_val`) over the dense backoff
-        base lw * bo(h).  `_root_of_word` maps each word to the root its
-        tokens entered; `_corr0` is the <s> row for utterance-initial
-        entries."""
-        lm, W = self.lm, v.n_word
-        prevc = g.prev_chan
-        if g.exit_base >= 0:
-            cur = np.arange(W, dtype=np.int64) + g.exit_base
-        else:
-            cur = np.asarray(np.maximum(g.exit_tab[:, 0], 0), np.int64)
-        for _ in range(256):
-            nxt = prevc[cur]
-            m = nxt >= 0
-            if not m.any():
-                break
-            cur = np.where(m, nxt, cur)
-        roots_idx = np.nonzero(g.is_entry)[0]
-        R = len(roots_idx)
-        rid = np.full(g.n_chan, -1, np.int64)
-        rid[roots_idx] = np.arange(R)
-        root_of_word = rid[cur]
-        if not (root_of_word >= 0).all():
-            raise ValueError("a word's channel path must start at a root")
-        self._n_roots = R
-        self._roots_np = roots_idx
-        self._buf("_roots", roots_idx)
-        self._buf("_root_of_word", root_of_word)
-        self.use_bgla = str(self.config["treela"]) == "bg"
-        if not self.use_bgla:
-            self._corr0_np = np.zeros(R, np.float32)
-            self._buf("_corr0", self._corr0_np)
-            return
-        ugmax_root = np.asarray(g.la, np.float64)[roots_idx]
-        is_fil = np.asarray(v.is_filler)
-        lmw = np.asarray(v.lmwid, np.int64)
-        okw = (~is_fil) & (lmw >= 0)
-        has_word = np.zeros(R, bool)
-        has_word[root_of_word[okw]] = True
-        Vlm = lm.n_words
-        lww = np.float32(self.lw)
-        # Sparse excess entries: for every (context h, root r) with an
-        # explicit bigram successor in subtree(r),
-        #   excess = lw * (max explicit bg_prob - ugmax(r)).
-        keys = np.zeros(0, np.int64)
-        vals = np.zeros(0, np.float32)
-        if len(lm.bg_wid):
-            pairs = np.unique(
-                np.stack([lmw[okw], root_of_word[okw]], 1), axis=0)
-            pptr = np.searchsorted(pairs[:, 0], np.arange(Vlm + 1))
-            cnt = np.diff(pptr)
-            ctx = np.repeat(np.arange(Vlm),
-                            np.diff(lm.bg_ptr)).astype(np.int64)
-            wid = np.asarray(lm.bg_wid, np.int64)
-            prob = np.asarray(lm.bg_prob, np.float32)
-            ks, vs = [], []
-            for p in range(int(cnt.max()) if len(cnt) else 0):
-                sel = cnt[wid] > p
-                r = pairs[pptr[wid[sel]] + p, 1]
-                ks.append(ctx[sel] * R + r)
-                vs.append(prob[sel] - ugmax_root[r].astype(np.float32))
-            if ks:
-                keys = np.concatenate(ks)
-                vals = np.concatenate(vs)
-                order = np.argsort(keys, kind="stable")
-                keys, vals = keys[order], vals[order]
-                uk, start = np.unique(keys, return_index=True)
-                vmax = np.maximum.reduceat(vals, start)
-                rr = (uk % R).astype(np.int64)
-                keep = has_word[rr]
-                keys, vals = uk[keep], (lww * vmax[keep]).astype(np.float32)
-        rowptr = np.searchsorted(keys // R, np.arange(Vlm + 1))
-        bgla_root = (keys % R if len(keys) else np.zeros(1, np.int64))
-        bgla_val = vals if len(vals) else np.zeros(1, np.float32)
-        self._buf("_bgla_ptr", rowptr)
-        self._buf("_bgla_root", bgla_root, torch.int64)
-        self._buf("_bgla_val", bgla_val, torch.float32)
-        self._bgla_maxrow = int(np.diff(rowptr).max()) if len(keys) else 0
-        self._buf("_bgla_base", (lww * np.asarray(lm.ug_bo, np.float32)
-                                 ).astype(np.float32))
-        self._buf("_has_word", has_word)
-        # <s> row for utterance-initial entries (host-evaluated).
-        corr0 = np.full(R, 0.0, np.float32)
-        if self.start_lmwid >= 0:
-            corr0[:] = lww * float(lm.ug_bo[self.start_lmwid])
-            lo, hi = int(rowptr[self.start_lmwid]), int(
-                rowptr[self.start_lmwid + 1])
-            if hi > lo:
-                np.maximum.at(corr0, bgla_root[lo:hi], bgla_val[lo:hi])
-            corr0[~has_word] = 0.0
-        self._corr0_np = corr0
-        self._buf("_corr0", corr0)
-
-    def _tree_tables(self, g) -> tree_step.Tables:
-        """The one-copy tree step's channel tables (`tree_step.Tables`)."""
-        root = np.zeros(g.n_chan, np.int32)
-        root[self._roots_np] = np.arange(self._n_roots)
-        for name, a in (("xs", g.static_xs), ("pc", np.maximum(g.prev_chan, 0)),
-                        ("root", root), ("ci_of", g.ci_of)):
-            self._buf("_tree_" + name, a, torch.int32)
-        return tree_step.Tables(
-            self._tree_xs, self._tree_pc, self._has_prev, self._is_entry,
-            self._tree_root, self._tree_ci_of, self._la_delta_c,
-            self._la_entry_c, tuple(b.contiguous() for b in self._bands()),
-            self.prune, self.log_beam, self.log_wbeam, self._pip32)
-
-    def _mpx_tables(self, g) -> mpx_step.Tables:
-        """The mpx step's channel tables (`mpx_step.Tables`)."""
-        for name, a in (("xs", g.static_xs),
-                        ("pc", np.maximum(g.prev_chan, 0)),
-                        ("word_of", g.word_of),
-                        ("lc_base", g.lc_row.astype(np.int64) * g.n_ci),
-                        ("ci_of", g.ci_of), ("lcmap", g.lcmap.reshape(-1))):
-            self._buf("_mpx_" + name, a, torch.int32)
-        return mpx_step.Tables(
-            self._mpx_xs, self._mpx_pc, self._has_prev, self._is_entry,
-            self._mpx_word_of, self._mpx_lc_base, self._mpx_ci_of,
-            self._mpx_lcmap, tuple(b.contiguous() for b in self._bands()),
-            self.prune, self.log_beam, self.log_wbeam, self._pip32)
-
-    def _bgla_rows(self, h: torch.Tensor) -> torch.Tensor:
-        """Bigram corrections for history words h [L] -> [L, R]: the base
-        lw * bo(h) overlaid with the CSR excess entries by a scatter-max
-        whose masked lanes go to the dropped column R; 0 for h < 0 (no
-        context) and for roots without LM words."""
-        R = self._n_roots
-        L = h.shape[0]
-        hc = h.clamp_min(0)
-        corr = self._bgla_base[hc][:, None].expand(L, R + 1).contiguous()
-        if self._bgla_maxrow:
-            lo = self._bgla_ptr[hc]
-            hi = self._bgla_ptr[hc + 1]
-            pos = lo[:, None] + torch.arange(self._bgla_maxrow,
-                                             device=h.device)
-            okk = pos < hi[:, None]
-            idx = pos.clamp_max(self._bgla_root.shape[0] - 1)
-            r = torch.where(okk, self._bgla_root[idx], R)
-            val = torch.where(okk, self._bgla_val[idx], NEG_INF)
-            corr = corr.scatter_reduce(1, r, val, "amax")
-        corr = corr[:, :R]
-        return torch.where(self._has_word[None] & (h[:, None] >= 0), corr,
-                           0.0)
-
-    # ------------------------------------------------------------------
-    def _xs_rows(self, scores: torch.Tensor) -> torch.Tensor:
-        """Senone scores [..., n_sen] -> extended-senone-sequence scores
-        [..., n_xs, S]: singleton rows are a gather, composite rows the max
-        over their members, one width bucket (`comp_groups`) at a time."""
-        g = self.graph
-        base = torch.where(self._sing_valid, scores[..., self._sing_sen],
-                           NEG_INF)
-        if g.n_xs == g.n_sing:
-            return base
-        comp = torch.cat([scores[..., getattr(self, f"_comp_group{i}")]
-                          .amax(-1) for i in range(self._n_comp_groups)], -2)
-        comp = torch.where(self._comp_valid, comp, NEG_INF)
-        return torch.cat([base[..., : g.n_sing, :],
-                          comp[..., : g.n_xs - g.n_sing, :]], -2)
-
-    def _expand_block(self, scores_blk: torch.Tensor) -> torch.Tensor:
-        """Static senone expansion of a block of frames: [B, K, n_sen] ->
-        [K, B, C, S] (every channel's senone row is fixed)."""
-        return self._xs_rows(scores_blk.transpose(0, 1))[:, :, self._static_xs]
-
-    def _lm_scores(self, h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
-        """P(w | h1, h2) for every search word: [B, E] histories ->
-        [B, E, W].  Per-history score rows when the LM has no dense table,
-        as the reference's cores do."""
-        B, E = h1.shape
-        W = self.vocab.n_word
-        if self.dlm.tg_dense is None:
-            rows = self.dlm.score_rows(h1.reshape(-1), h2.reshape(-1))
-            return rows[:, self._lmwid_c].view(B, E, W)
-        return self.dlm.score_tg(h1[..., None], h2[..., None], self._lmwid_c,
-                                 lanes=E * W)
-
-    def _prune(self, alpha, ex, la_t=None):
-        """Channel beam and word-exit beam relative to each utterance's
-        frame best (prune_channels / save_bp thresholds); alpha [B, ..., C,
-        S] (a leading copy axis for the tree copies), ex [B, ..., C].  With
-        the phone-loop lookahead la_t [B, n_ci], a channel's best score
-        takes its phone's lookahead before the beam."""
-        if not self.prune:
-            return alpha, ex
-        lead = (1,) * (alpha.dim() - 2)
-        bestscr = alpha.flatten(1).amax(1).view(-1, *lead)        # [B, 1..]
-        cmax = alpha.amax(-1)                                     # [B, .., C]
-        if la_t is not None:
-            cmax = cmax + la_t[:, self._ci_of].view(
-                la_t.shape[0], *lead[1:], -1)
-        keep = cmax > bestscr + self.log_beam
-        alpha = torch.where(keep[..., None], alpha, NEG_INF)
-        ex = torch.where(ex > bestscr + self.log_wbeam, ex, NEG_INF)
-        return alpha, ex
-
     def _lookahead(self, scores: torch.Tensor, n: int) -> torch.Tensor:
         """The phone-loop lookahead of the first n frames of scores [B, F,
         n_sen] (F >= n): each CI phone's best senone score relative to the
@@ -652,389 +320,17 @@ class NgramSearch(nn.Module):
                   for dt in range(self.pl_window)]
         return _f32(self.pl_weight) * torch.stack(shifts).amax(0)
 
-    @staticmethod
-    def _write_tape(tape_t, ok, wsel, vals, pe, h2, h1, slot_rc) -> None:
-        """The frame's tape rows: `tape_t` holds views [B, E(, Vr)] of the
-        block's tape at this frame's row (`_block`)."""
-        rows = (torch.where(ok, wsel, -1), torch.where(ok, vals, NEG_INF),
-                pe, h2, h1, torch.where(ok[..., None], slot_rc, NEG_INF))
-        for a, r in zip(tape_t, rows):
-            a.copy_(r)
-
-    def _read_hist(self, ht, pe):
-        """Histories (h2, h1) of the tape slots `pe` [B, L] from the
-        side-table ht [B, Tpad*E, 2]; slot -1 is the initial (<s>, -1)."""
-        ph = ht.gather(1, pe.clamp_min(0)[..., None].expand(-1, -1, 2))
-        return (torch.where(pe < 0, self.start_lmwid, ph[..., 0]),
-                torch.where(pe < 0, -1, ph[..., 1]))
-
-    def _record_hist(self, ht, t, valid_t, h2, h1) -> None:
-        """Frame t's histories into rows t*E .. t*E+E-1 of ht."""
-        ht.index_copy_(1, t * self.E + self._ar_E, torch.where(
-            valid_t[:, None, None], torch.stack([h2, h1], -1), -1))
-
-    # ------------------------------------------------------------------
-    # The mpx frame step (multiplexed left contexts).
-    def _init_hmmc(self, B: int):
-        """Initial HMM carry: all channels silent except the static <s>
-        entries; word-history payloads (hw2, hw1) start at (<s>, -1).
-        alpha [B, C, S] f32 and the int32 payloads (tape slot, senone-
-        sequence row, hw2, hw1) [B, C, S]."""
-        g = self.graph
-        C, S = g.n_chan, g.n_emit_state
-        dev = self.device
-
-        def full(shape, val):
-            return torch.full(shape, val, dtype=torch.int32, device=dev)
-
-        alpha = torch.full((C, S), NEG_INF, dtype=torch.float32, device=dev)
-        xsr = self._mpx_xs[:, None].expand(C, S)
-        alpha, pays = hmm_enter(
-            alpha, (full((C, S), -1), xsr, full((C, S), self.start_lmwid),
-                    full((C, S), -1)),
-            self._entc0,
-            (full((C,), -1), self._entxs0, full((C,), self.start_lmwid),
-             full((C,), -1)))
-        return tuple(a[None].expand(B, C, S).contiguous()
-                     for a in (alpha,) + pays)
-
-    def _step_mpx(self, hmmc, scores_t, t, valid_t, tape, la_t=None):
-        """One frame of the mpx core for the whole batch (frame t, a 0-d
-        int64 tensor, as in every step).  Writes the frame's tape rows into
-        `tape` (views of one row, `_write_tape`).  The channel update is
-        `mpx_step`'s (its kernels on the card): the exits before the
-        readout, the new carry after it, written into the carry's arrays,
-        which are returned."""
-        B = hmmc[0].shape[0]
-        E = self.E
-        W = self.vocab.n_word
-        Vr = self.graph.n_rcvar
-        neg = NEG_INF
-        tab = self._mpx_tab
-        rows = self._xs_rows(scores_t)                            # [B, n_xs, S]
-        st = mpx_step.step_exits(hmmc, rows, tab)
-
-        # ---- word exits: per-variant readout [B, W, Vr], word-exit beam ----
-        exv = torch.where(self._exit_valid, st.ex[:, self._exit_tab_c], neg)
-        if self.prune:
-            exv = torch.where(exv > st.best[:, None, None] + self.log_wbeam,
-                              exv, neg)
-        wex = exv.amax(2)                                         # [B, W]
-        vwin = exv.argmax(2)
-        sel = torch.gather(self._exit_tab_c.expand(B, W, Vr), 2,
-                           vwin[..., None])[..., 0]               # [B, W]
-        wexh3 = torch.gather(st.exh3, 1, sel[..., None].expand(B, W, 3))
-
-        # ---- top-E word exits -> tape slots ----
-        vals, wsel = topk2(wex, E)                                # [B, E]
-        ok = (vals > neg * 0.5) & valid_t[:, None]
-        slot_rc = torch.gather(exv, 1, wsel[..., None].expand(B, E, Vr))
-        pe, prev_h2, prev_h1 = torch.gather(
-            wexh3, 1, wsel[..., None].expand(B, E, 3)).long().unbind(-1)
-        fil = self._is_filler[wsel]
-        h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
-        h1 = torch.where(fil, prev_h1, prev_h2)
-        self._write_tape(tape, ok, wsel, vals, pe, h2, h1, slot_rc)
-
-        # ---- word entries (take effect next frame): score and payloads
-        # (tape slot, left-context CI phone, h2, h1) a word ----
-        ent_w, ebp_w, estar = self._entries(t, ok, wsel, h1, h2, slot_rc)
-        eh = torch.gather(torch.stack([self._lastci[wsel], h2, h1], -1), 1,
-                          estar[..., None].expand(B, W, 3))
-        ent_pay = torch.cat([ebp_w[..., None], eh], -1).to(torch.int32)
-        return mpx_step.prune_enter(hmmc, rows, st, ent_w, ent_pay, la_t,
-                                    valid_t, tab)
-
-    def _entries(self, t, ok, wsel, h1, h2, slot_rc):
-        """Single best cross-word entry per word (word_transition
-        semantics): over this frame's E exit slots, exit score (the exit's
-        rc variant serving the word's first CI phone) + LM or filler
-        bonus.  Returns (entry score [B, W], entry bp slot, best slot)."""
-        E = self.E
-        lmw = self._lm_scores(h1, h2)                             # [B, E, W]
-        bonus = torch.where(self._is_filler, self._fil_pen,
-                            self._lw32 * lmw + self._wip32)
-        if self.graph.n_rcvar == 1:
-            ac = slot_rc                                          # [B, E, 1]
-        else:
-            ac = torch.gather(slot_rc, 2,
-                              self._rssid[wsel[..., None], self._firstci])
-        cand = torch.where(ok[..., None], ac + bonus, NEG_INF)    # [B, E, W]
-        ent_w = cand.amax(1)                                      # [B, W]
-        estar = cand.argmax(1)
-        ebp_w = torch.where(ent_w > NEG_INF * 0.5, t * E + estar, -1)
-        return ent_w, ebp_w, estar
-
-    # ------------------------------------------------------------------
-    def _bands(self):
-        """The transition bands of every channel, `hmm_step`'s form."""
-        return (self._band_d0, self._band_d1, self._band_d2,
-                self._band_elast, self._band_eprev)
-
-    def _init_static(self, B: int, Tpad: int):
-        """Initial carry of the static and tree steps: (alpha, bp payload
-        [B, C, S], history side-table [B, Tpad*E, 2]) and, for the tree
-        with bigram lookahead, the entry-correction side-table [B, Tpad*R].
-        The static payload is the tape slot (-1 = the initial (<s>, -1)
-        history); the tree's is an 8-bit entry age (255 = initial).  N > 1
-        tree copies (`nlextree`) ride an axis after the batch, alpha and
-        payload [B, N, C, S], with the tape slot as their payload and the
-        corrections [B, Tpad*N*R], row (t*N + n)*R."""
-        g = self.graph
-        C, S = g.n_chan, g.n_emit_state
-        N = self.nlextree
-        dev = self.device
-        alpha = torch.full((C, S), NEG_INF, dtype=torch.float32, device=dev)
-        alpha, _ = hmm_enter(alpha, (), self._entc0, ())
-        shape = (B, C, S) if N == 1 else (B, N, C, S)
-        if N > 1:
-            # Copy 0 holds the initial entries; the others start empty.
-            alpha = torch.cat([alpha[None], alpha.new_full((N - 1, C, S),
-                                                           NEG_INF)])
-        # Every token, entered or not, starts from the initial history.
-        hist = (torch.full(shape, 255, dtype=torch.uint8, device=dev)
-                if self._tree and N == 1 else
-                torch.full(shape, -1, dtype=torch.int64, device=dev))
-        carry = (alpha.expand(shape).contiguous(), hist,
-                 torch.full((B, Tpad * self.E, 2), -1, dtype=torch.int64,
-                            device=dev))
-        if self._tree:
-            R = self._n_roots if self.use_bgla else 1
-            carry += (torch.zeros((B, Tpad * N * R), dtype=torch.float32,
-                                  device=dev),)
-        return carry
-
-    def _step_static(self, carry, sen_t, t, valid_t, tape, la_t=None):
-        """One frame of the static core (composite lc, flat lexicon): the
-        reference's `_make_core_static` (any n_rcvar) and
-        `_make_core_static_batched` (n_rcvar == 1) in one step."""
-        alpha0, hist0, ht = carry
-        B = alpha0.shape[0]
-        E, W, Vr = self.E, self.vocab.n_word, self.graph.n_rcvar
-        neg = NEG_INF
-        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist0,), sen_t,
-                                               self._bands())
-        alpha, ex = self._prune(alpha, ex, la_t)
-
-        # ---- word exits ----
-        if Vr == 1:
-            wex = ex[:, self._exit_col]                           # [B, W]
-            wbp = exh[:, self._exit_col]
-        else:
-            exv = torch.where(self._exit_valid, ex[:, self._exit_tab_c], neg)
-            wex = exv.amax(2)
-            vwin = exv.argmax(2)
-            sel = torch.gather(self._exit_tab_c.expand(B, W, Vr), 2,
-                               vwin[..., None])[..., 0]
-            wbp = torch.gather(exh, 1, sel)
-        vals, wsel = topk2(wex, E)                                # [B, E]
-        slot_rc = (vals[..., None] if Vr == 1 else
-                   torch.gather(exv, 1, wsel[..., None].expand(B, E, Vr)))
-        ok = (vals > neg * 0.5) & valid_t[:, None]
-        pe = torch.gather(wbp, 1, wsel)
-        prev_h2, prev_h1 = self._read_hist(ht, pe)
-        fil = self._is_filler[wsel]
-        h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
-        h1 = torch.where(fil, prev_h1, prev_h2)
-        self._write_tape(tape, ok, wsel, vals, pe, h2, h1, slot_rc)
-
-        # ---- word entries ----
-        ent_w, ebp_w, _ = self._entries(t, ok, wsel, h1, h2, slot_rc)
-        self._record_hist(ht, t, valid_t, h2, h1)
-
-        # ---- within-word propagation ----
-        if self._chain_shift:
-            prop = torch.cat([ex.new_full((B, 1), neg),
-                              ex[:, :-1] + self._pip32], 1)
-            bsh = torch.cat([exh.new_full((B, 1), -1), exh[:, :-1]], 1)
-        else:
-            pc = self._prev_chan_c
-            prop = torch.where(self._has_prev, ex[:, pc] + self._pip32, neg)
-            bsh = torch.where(self._has_prev, exh[:, pc], -1)
-        ie = self._is_entry
-        wo = self._word_of
-        alpha, (hist,) = hmm_enter(
-            alpha, (hist,), torch.where(ie, ent_w[:, wo], prop),
-            (torch.where(ie, ebp_w[:, wo], bsh),))
-        vm = valid_t[:, None, None]
-        return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
-                ht)
-
-    def _tree_exits(self, t, valid_t, tape, wex, wbp, ht, ct,
-                    nsel=None):
-        """The tree steps' exit readout, from each word's best exit `wex`
-        [B, W] and its token's payload `wbp`: the shortlist on the smeared
-        score, the exact trigram in place of the smeared unigram, the bigram
-        correction the token received at entry cancelled, the top E to the
-        tape and the history side-table.  One copy (`nsel` None): the
-        payload is the entry age; N copies: the tape slot, and `nsel` [B, W]
-        the copy each exit came from (the reference's `use_age = N == 1`).
-        Returns the slots' (vals, ok, h2, h1) [B, E]."""
-        E, W = self.E, self.vocab.n_word
-        R = self._n_roots
-        E2 = min(4 * E, W)
-        neg = NEG_INF
-        v2, wsel2 = topk2(wex + self._psel_bonus, E2)             # [B, E2]
-        okp = (v2 > neg * 0.5) & valid_t[:, None]
-        p2 = torch.gather(wbp, 1, wsel2)
-        if nsel is None:
-            p2 = p2.long()
-            pe2 = torch.where(p2 >= 255, -1, (t - p2) * E)
-        else:
-            pe2 = p2
-        ph2, ph1 = self._read_hist(ht, pe2)
-        wl2 = self._lmwid[wsel2]
-        fil2 = self._is_filler[wsel2]
-        own = self.dlm.score_tg(ph1, ph2, wl2.clamp_min(0), lanes=E2)
-        if self.use_bgla:
-            rw2 = self._root_of_word[wsel2]                       # [B, E2]
-            row = pe2.clamp_min(0) // E
-            if nsel is not None:
-                row = row * self.nlextree + torch.gather(nsel, 1, wsel2)
-            cu = torch.gather(ct, 1, row * R + rw2)
-            cu = torch.where(pe2 < 0, self._corr0[rw2], cu)
-        else:
-            cu = 0.0
-        resc = torch.where(fil2, v2 - cu,
-                           v2 - cu - self._la_word_lw[wsel2]
-                           + self._lw32 * own)
-        resc = torch.where(okp, resc, neg)
-
-        # ---- top-E rescored exits -> tape slots ----
-        vals, sel = _top_k(resc, E)                               # [B, E]
-        wsel = torch.gather(wsel2, 1, sel)
-        ok = vals > neg * 0.5
-        pe = torch.gather(pe2, 1, sel)
-        prev_h2 = torch.gather(ph2, 1, sel)
-        prev_h1 = torch.gather(ph1, 1, sel)
-        fil = self._is_filler[wsel]
-        h2 = torch.where(fil, prev_h2, self._lmwid[wsel])
-        h1 = torch.where(fil, prev_h1, prev_h2)
-        self._write_tape(tape, ok, wsel, vals, pe, h2, h1, vals[..., None])
-        self._record_hist(ht, t, valid_t, h2, h1)
-        return vals, ok, h2, h1
-
-    def _exit_cols(self, ex, exh):
-        """Every word's exit channel of ex/exh [..., C] -> [..., W]."""
-        xb, W = self.graph.exit_base, self.vocab.n_word
-        if xb >= 0:
-            return ex[..., xb: xb + W], exh[..., xb: xb + W]
-        return ex[..., self._exit_col], exh[..., self._exit_col]
-
-    def _step_tree(self, carry, rows_t, t, valid_t, tape, la_t=None):
-        """One frame of the prefix-tree core with one tree copy: the
-        reference's `_make_core_tree` (N = 1) and `_make_core_tree_batched`
-        in one step, from the frame's senone-sequence rows rows_t [B,
-        n_xs, S].  Tokens carry an 8-bit entry age (255 = the initial <s>
-        entry; the increment saturates at 254 + 1); the re-entry always
-        takes the frame's slot 0, so a token's tape slot is (t - age)*E.
-        The channel update is `tree_step`'s (its kernels on the card), and
-        it writes the new alpha and age into the carry's."""
-        alpha0, hist0, ht, ct = carry
-        R = self._n_roots
-        neg = NEG_INF
-        tab = self._tree_tab
-        st = tree_step.step_exits(alpha0, hist0, rows_t, tab)
-        wex, wbp = self._exit_cols(st.ex, st.exh)                 # [B, W]
-        if self.prune:
-            wex = torch.where(wex > st.best[:, None] + self.log_wbeam, wex,
-                              neg)
-        vals, ok, h2, _ = self._tree_exits(t, valid_t, tape, wex, wbp, ht,
-                                           ct)
-
-        # ---- single best re-entry, into every root ----
-        ent = torch.where(ok[:, 0], vals[:, 0], neg)              # [B]
-        corr = None
-        if self.use_bgla:
-            # Per-history bigram correction at the roots, recorded for the
-            # exact cancellation at the exit readout (0 on padded frames,
-            # whose rows are never read).
-            corr = self._bgla_rows(h2[:, 0])                      # [B, R]
-            ct.index_copy_(1, t * R + self._ar_ct,
-                           torch.where(valid_t[:, None], corr, 0.0))
-        alpha0, hist0 = tree_step.prune_enter(alpha0, hist0, st, ent, corr,
-                                              la_t, valid_t, tab)
-        return alpha0, hist0, ht, ct
-
-    def _step_tree_copies(self, carry, sen_t, t, valid_t, tape,
-                          la_t=None):
-        """One frame of the tree core with N > 1 copies (the reference's
-        `_make_core_tree`, N > 1): the copies' exits merge per word (best
-        copy, first on ties), the shortlist and the tape are the one-copy
-        step's, and copy n re-enters from the n-th best tape slot whose
-        (h2, h1) history no earlier copy took.  Tokens carry their tape
-        slot (-1 = the initial history)."""
-        alpha0, hist0, ht, ct = carry
-        B, N = alpha0.shape[0], alpha0.shape[1]
-        E, R = self.E, self._n_roots
-        neg = NEG_INF
-        alpha, (hist,), ex, (exh,) = hmm_step(alpha0, (hist0,), sen_t[:, None],
-                                               self._bands())
-        alpha, ex = self._prune(alpha, ex, la_t)
-
-        # ---- exit readout: best copy per word ----
-        wexn, whn = self._exit_cols(ex, exh)                      # [B, N, W]
-        nsel = _argmax_first(wexn, 1)                            # [B, W]
-        wex = wexn.amax(1)
-        wbp = torch.gather(whn, 1, nsel[:, None])[:, 0]
-        vals, ok, h2, h1 = self._tree_exits(t, valid_t, tape, wex, wbp, ht,
-                                            ct, nsel)
-
-        # ---- re-entries: copy n takes the n-th history-distinct slot
-        # (vals are sorted, so the first available slot is the best) ----
-        ents, bps, hsels = [], [], []
-        chosen = torch.zeros_like(ok)
-        slots = torch.arange(E, device=ok.device)
-        for _ in range(N):
-            avail = ok & ~chosen
-            has = avail.any(1)
-            idx = torch.where(avail, slots, E).amin(1)
-            idx = torch.where(has, idx, 0)[:, None]
-            ents.append(torch.where(has, torch.gather(vals, 1, idx)[:, 0],
-                                    neg))
-            bps.append(torch.where(has, t * E + idx[:, 0], -1))
-            hh2 = torch.gather(h2, 1, idx)
-            hsels.append(torch.where(has, hh2[:, 0], -1))
-            chosen = chosen | ((h2 == hh2) & (h1 == torch.gather(h1, 1, idx)))
-        ent = torch.stack(ents, 1)                                # [B, N]
-        ent_bp = torch.stack(bps, 1)
-
-        # ---- within-word propagation with the telescoping smear ----
-        pc = self._prev_chan_c
-        prop = torch.where(self._has_prev,
-                           ex[..., pc] + self._pip32 + self._la_delta_c, neg)
-        bsh = torch.where(self._has_prev, exh[..., pc], -1)
-        entry_base = ent[..., None] + self._la_entry_c            # [B, N, C]
-        if self.use_bgla:
-            corr = self._bgla_rows(torch.stack(hsels, 1).reshape(-1))
-            corr = corr.view(B, N, R)
-            ct.index_copy_(1, t * (N * R) + self._ar_ct, torch.where(
-                valid_t[:, None], corr.reshape(B, N * R), 0.0))
-            entry_base[..., self._roots] += corr
-        ie = self._is_entry
-        alpha, (hist,) = hmm_enter(
-            alpha, (hist,), torch.where(ie, entry_base, prop),
-            (torch.where(ie, ent_bp[..., None], bsh),))
-        vm = valid_t[:, None, None, None]
-        return (torch.where(vm, alpha, alpha0), torch.where(vm, hist, hist0),
-                ht, ct)
-
     # ------------------------------------------------------------------
     def _block_len(self, B: int, n: int) -> int:
         """Frames a block of a scan of n frames at batch B: the largest
-        divisor of gcd(n, FRAME_BUCKET) whose senone scores fit in
-        EXPAND_BLOCK_BYTES: for the static step and the tree copies
-        expanded to every channel, for the one-copy tree step its
-        senone-sequence rows (each with the composite rows' members).  A
-        batch (n a multiple of FRAME_BUCKET) and a stream's chunk (n =
-        CHUNK) so run whole blocks of one length: one captured graph a
-        shape."""
+        divisor of gcd(n, FRAME_BUCKET) whose block inputs (the step's
+        `frame_bytes`) fit in EXPAND_BLOCK_BYTES.  A batch (n a multiple of
+        FRAME_BUCKET) and a stream's chunk (n = CHUNK) so run whole blocks
+        of one length: one captured graph a shape."""
         base = math.gcd(n, self.FRAME_BUCKET)
         cap = base
-        if self._fast:
-            g = self.graph
-            rows = g.n_xs if self._tree and self.nlextree == 1 else g.n_chan
-            per_frame = (rows * g.n_emit_state + g.comp_mem.size) * 4 * B
+        per_frame = self.step.frame_bytes(self.graph, B)
+        if per_frame:
             cap = min(cap, EXPAND_BLOCK_BYTES // per_frame)
         return max(d for d in range(1, max(1, cap) + 1) if base % d == 0)
 
@@ -1046,30 +342,18 @@ class NgramSearch(nn.Module):
         n = -(-Tpad // self.FRAME_BUCKET)
         return self.FRAME_BUCKET << max(0, (n - 1).bit_length())
 
-    def _block(self, carry, scores: torch.Tensor, t: torch.Tensor,
-               valid: torch.Tensor, tape, la: Optional[torch.Tensor] = None):
-        """One block: frames t .. t+K-1 of the senone scores [B, K, n_sen]
-        (valid [B, K]; the lookahead la [B, K, n_ci] or None) through the
-        graph's frame step, the frame index t a 0-d int64 tensor advanced
-        on the device; writes row k of the block's tape [B, K, E(, Vr)]
-        for frame t+k and returns the carry.  The static step and the tree
-        copies expand the block's senones first, the one-copy tree step
-        takes the block's senone-sequence rows (both elementwise, so the
-        block changes no result).  Nothing here reads a device value on
-        the host, so the block can be captured."""
-        if not self._fast:
-            step, sen = self._step_mpx, scores.unbind(1)
-        elif self._tree and self.nlextree == 1:
-            step = self._step_tree
-            sen = self._xs_rows(scores.transpose(0, 1).contiguous())
-        else:
-            step = (self._step_static if not self._tree else
-                    self._step_tree_copies)
-            sen = self._expand_block(scores)
+    def _block(self, carry, inputs, t: torch.Tensor, tape):
+        """One block: frames t .. t+K-1 of the inputs (scores [B, K, n_sen],
+        valid [B, K], the lookahead [B, K, n_ci] or None) through the frame
+        step; writes row k of the block's tape for frame t+k and returns
+        the carry.  No host read, so the block can be captured."""
+        scores, valid, la = inputs
+        step = self.step
+        xs = step.block_inputs(scores)
         for k in range(scores.shape[1]):
-            carry = step(carry, sen[k], t, valid[:, k],
-                         tuple(a[:, k] for a in tape),
-                         None if la is None else la[:, k])
+            carry = step.frame(carry, xs[k], t, valid[:, k],
+                               tuple(a[:, k] for a in tape),
+                               None if la is None else la[:, k])
             t = t + 1
         return carry
 
@@ -1084,21 +368,12 @@ class NgramSearch(nn.Module):
         a last block shorter than `_block_len` (only where the caller
         chose the block length) replays a graph of its own length."""
         B, n = scores.shape[0], scores.shape[1]
-        return self._runner.scan(
-            self._run_block, carry, (scores, valid, la), tape, t0,
-            self._block_len(B, n), self._graphs and scores.is_cuda)
+        return self._runner.scan(self._block, carry, (scores, valid, la),
+                                 tape, t0, self._block_len(B, n))
 
-    def _run_block(self, carry, inputs, t, rows):
-        """`_block` as the runner calls it."""
-        scores, valid, la = inputs
-        return self._block(carry, scores, t, valid, rows, la)
-
-    # The runner's counters (captures, capture_s, replays); its graph
-    # cache and pool under the names the tests and chip_smoke.py read.
+    # The runner's counters (captures, capture_s, replays).
     graph_stats = property(lambda self: self._runner.stats)
-    _graph_cache = property(lambda self: self._runner.cache)
-    _graph_pool = property(lambda self: self._runner.pool)
-    # Read by portbench/drive.py, until its reader moves to graph_stats.
+    # Read by portbench/drive.py:119, until its reader moves to graph_stats.
     _graph_stats = property(lambda self: self._runner.stats)
 
     def _tape(self, B: int, frames: int, fill: bool = False) -> tuple:
@@ -1134,8 +409,7 @@ class NgramSearch(nn.Module):
             with span("ngram.lookahead"):
                 la = self._lookahead(scores, Tpad)
         tape = self._tape(B, Tpad)
-        carry = (self._init_static(B, self._side_frames(Tpad)) if self._fast
-                 else self._init_hmmc(B))
+        carry = self.step.init_carry(B, self._side_frames(Tpad))
         self._scan(carry, scores, 0, valid, tape, la)
         n = Tpad * E
         return tuple(a.view(B, n) for a in tape[:5]) + (
@@ -1218,6 +492,11 @@ class NgramSearch(nn.Module):
                 break
             segs.append(Segment(v.word_str[int(k)], int(st), int(en),
                                 float(sc)))
+        return self._hypothesis(segs, score)
+
+    def _hypothesis(self, segs: List[Segment], score) -> Hypothesis:
+        """The Hypothesis of a path's segments, last word first: its words
+        without the fillers, under their base spellings."""
         if not segs:
             return Hypothesis([], float("-inf"), [])
         segs.reverse()
@@ -1305,9 +584,8 @@ class NgramSearch(nn.Module):
         """Begin a streaming utterance; returns its state (the carry and
         the tape on the device).  `max_frames` sizes the first tape; it
         doubles when the audio runs past it (acmod_set_grow semantics)."""
-        carry = (self._init_static(1, max_frames) if self._fast
-                 else self._init_hmmc(1))
-        return {"carry": carry, "tape": self._tape(1, max_frames, fill=True), "t": 0,
+        return {"carry": self.step.init_carry(1, max_frames),
+                "tape": self._tape(1, max_frames, fill=True), "t": 0,
                 "max_frames": max_frames,
                 "pending": np.zeros((0, 0), np.float32)}
 
@@ -1319,11 +597,7 @@ class NgramSearch(nn.Module):
             F = state["max_frames"]
             state["tape"] = tuple(torch.cat([a, b], 1) for a, b in zip(
                 state["tape"], self._tape(1, F, fill=True)))
-            if self._fast:
-                alpha, hist, ht, *ct = state["carry"]
-                ht = torch.cat([ht, torch.full_like(ht, -1)], 1)
-                ct = [torch.cat([c, torch.zeros_like(c)], 1) for c in ct]
-                state["carry"] = (alpha, hist, ht, *ct)
+            state["carry"] = self.step.grow(state["carry"])
             state["max_frames"] = 2 * F
 
     def _stream_chunk(self, state: dict, block: np.ndarray, take: int
@@ -1453,10 +727,6 @@ class NgramSearch(nn.Module):
         Ts = self._last_batch[1]
         self._last = tuple(a[i] for a in htapes) + (Ts[i],)
 
-    def _slot_rc_score(self, trc_row: np.ndarray, k: int, ci: int) -> float:
-        """Exit score of word k's rc variant serving CI phone ci."""
-        return float(trc_row[int(self.graph.rssid[k, ci])])
-
     def _tg_batch(self, h1: np.ndarray, h2: np.ndarray,
                   w: np.ndarray) -> np.ndarray:
         """Batched trigram scores (the native lm3g core when built)."""
@@ -1544,7 +814,7 @@ class NgramSearch(nn.Module):
             for e in range(E):
                 if ws[e] < 0:
                     continue
-                s = self._slot_rc_score(trc[sl][e], int(ws[e]), self.sil_ci)
+                s = float(trc[sl][e][self.graph.rssid[ws[e], self.sil_ci]])
                 if not np.isfinite(s) or s <= float(NEG_INF) * 0.5:
                     s = tsc[sl][e]
                 if not v.is_finish[ws[e]]:
@@ -1558,8 +828,6 @@ class NgramSearch(nn.Module):
 
     def _backtrace(self, tw, tsc, tprev, th2, th1, trc, T) -> Hypothesis:
         slot, score = self._final_slot(tw, tsc, th2, th1, trc, T)
-        if slot < 0:
-            return Hypothesis([], float("-inf"), [])
         v, E = self.vocab, self.E
         segs: List[Segment] = []
         while slot >= 0:
@@ -1569,10 +837,4 @@ class NgramSearch(nn.Module):
             start = prev // E + 1 if prev >= 0 else 0
             segs.append(Segment(v.word_str[k], start, t, float(tsc[slot])))
             slot = prev
-        segs.reverse()
-        words = []
-        for s in segs:
-            wid = self.dict.wordid(s.word)
-            if wid < 0 or not self.dict.is_filler(wid):
-                words.append(self.dict.base_str(wid) if wid >= 0 else s.word)
-        return Hypothesis(words, score, segs)
+        return self._hypothesis(segs, score)

@@ -37,8 +37,8 @@ from .graphs import BlockRunner, pad_frames
 
 class PhoneLoopSearch:
     """Batched CI-phone loop over a senone scorer; its tables live on
-    `device`.  `_graphs = False`, a private attribute for the tests and
-    `chip_smoke.py`, runs the blocks eagerly on the card."""
+    `device`.  `_runner.graphs = False` runs the blocks eagerly on the
+    card."""
 
     # Frames a block (one graph whatever the utterance's length).
     BLOCK = 50
@@ -62,7 +62,6 @@ class PhoneLoopSearch:
                             for b in hmm_bands(tmat.log_tp[tm]))
         self._n_state = sen.shape[1]
         self._lp = float(np.float32(self.log_pip))
-        self._graphs = True
         self._runner = BlockRunner()
 
     # The runner's counters (captures, capture_s, replays).
@@ -105,8 +104,7 @@ class PhoneLoopSearch:
         best = torch.empty(F, dtype=torch.float32, device=dev)
         phones = torch.empty((F, n), dtype=torch.float32, device=dev)
         self._runner.scan(self._block, (alpha,), (scores, valid),
-                          (best, phones), 0, self.BLOCK,
-                          self._graphs and scores.is_cuda)
+                          (best, phones), 0, self.BLOCK)
         return best, phones
 
     @torch.inference_mode()

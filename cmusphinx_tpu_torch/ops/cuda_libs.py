@@ -6,8 +6,9 @@ sm_90a, at first use, every library not built yet: the units of all of
 them at once, each library then linked into `build/kernels` at the
 repository root (git-ignored), named by a hash of its source, its flags
 and its units.  The kernels' modules (`fused_gmm`, `tree_step`,
-`ptm_parity`, `mpx_step`) load their library with ctypes after it.
-Nothing is compiled when this module is imported.
+`ptm_parity`, `mpx_step`) load their library with ctypes after it, and
+check their arguments with the `expect*` functions here.  Nothing is
+compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -95,3 +98,64 @@ def build_all() -> float:
                 "".join(logs[i] for i in mine) + r.stdout + r.stderr)
             os.replace(tmp, so)
     return time.perf_counter() - t0
+
+
+# ---- the wrappers' argument checks ---------------------------------------
+def expect(t: torch.Tensor, name: str, shape, dtype) -> None:
+    """TypeError unless `t` has `dtype`, ValueError unless `shape`."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def expect_rows(rows: torch.Tensor, B: int, S: int) -> None:
+    """A frame's senone-sequence rows: [B, n_xs, S] float32."""
+    if rows.dim() != 3 or rows.shape[0] != B or rows.shape[2] != S:
+        raise ValueError(f"rows must be [{B}, n_xs, {S}], got "
+                         f"{tuple(rows.shape)}")
+    expect(rows, "rows", rows.shape, torch.float32)
+
+
+def expect_lookahead(la_t, B: int) -> None:
+    """The phone-loop lookahead: None, or [B, n_ci] f32, rows contiguous."""
+    if la_t is None:
+        return
+    if la_t.dim() != 2 or la_t.shape[0] != B:
+        raise ValueError(f"la_t must be [{B}, n_ci], got "
+                         f"{tuple(la_t.shape)}")
+    expect(la_t, "la_t", la_t.shape, torch.float32)
+    if la_t.stride(1) != 1:
+        raise ValueError("la_t's rows must be contiguous")
+
+
+def expect_bands(bands, C: int, S: int) -> dict:
+    """`hmm_bands`' five float32 arrays of C channels, by name."""
+    named = dict(zip(("d0", "d1", "d2", "e_last", "e_prev"), bands))
+    for (name, b), shape in zip(named.items(), (
+            (C, S), (C, max(S - 1, 0)), (C, max(S - 2, 0)), (C,), (C,))):
+        expect(b, name, shape, torch.float32)
+    return named
+
+
+def expect_states(S: int, most: int) -> None:
+    if not 1 <= S <= most:
+        raise ValueError(f"the kernels take 1 to {most} states, got {S}")
+
+
+def contiguous(tensors: dict) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def one_device(tensors, kernel: str) -> torch.device:
+    """The one device, the CPU or a card, of the tensors (None aside)."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {kernel} kernel for device {dev}")
+    return dev

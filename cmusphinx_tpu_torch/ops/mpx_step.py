@@ -1,5 +1,5 @@
 """The multiplexed-left-context frame step's channel update
-(`NgramSearch._step_mpx`) as two hand-written CUDA kernels, and their
+(`ngram_steps.MpxStep`) as two hand-written CUDA kernels, and their
 plain PyTorch version.
 
     step_exits   (kernel A)  the carry (alpha [B, C, S] and its four
@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda_libs
+from .cuda_libs import expect
 from .hmm import NEG_INF, hmm_enter, hmm_step
 
 LIBRARY = "mpx_step"
@@ -192,30 +193,6 @@ def prune_enter_ref(carry: Carry, rows: torch.Tensor, st: Exits,
 
 
 # ----------------------------------------------------------------------
-def _expect(t: torch.Tensor, name: str, shape, dtype) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
-def _device(tensors) -> torch.device:
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no mpx-step kernel for device {dev}")
-    return dev
-
-
-def _contiguous(tensors) -> None:
-    for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 _CARRY = ("alpha", "hist", "xsr", "hw2", "hw1")
 
 
@@ -226,35 +203,26 @@ def _check_inputs(carry: Carry, rows: torch.Tensor, tab: Tables) -> dict:
                          f"arrays")
     B, C, S = carry[0].shape
     for name, t in zip(_CARRY, carry):
-        _expect(t, name, (B, C, S),
-                torch.float32 if name == "alpha" else torch.int32)
-    if rows.dim() != 3 or rows.shape[0] != B or rows.shape[2] != S:
-        raise ValueError(f"rows must be [{B}, n_xs, {S}], got "
-                         f"{tuple(rows.shape)}")
-    _expect(rows, "rows", rows.shape, torch.float32)
+        expect(t, name, (B, C, S),
+               torch.float32 if name == "alpha" else torch.int32)
+    cuda_libs.expect_rows(rows, B, S)
     for name in ("xs", "pc", "word_of", "lc_base", "ci_of"):
-        _expect(getattr(tab, name), name, (C,), torch.int32)
+        expect(getattr(tab, name), name, (C,), torch.int32)
     for name in ("has_prev", "is_entry"):
-        _expect(getattr(tab, name), name, (C,), torch.bool)
+        expect(getattr(tab, name), name, (C,), torch.bool)
     if tab.lcmap.dim() != 1:
         raise ValueError("lcmap must be flat")
-    _expect(tab.lcmap, "lcmap", tab.lcmap.shape, torch.int32)
-    named = {**dict(zip(_CARRY, carry)), "rows": rows}
-    for name, b, shape in zip(("d0", "d1", "d2", "e_last", "e_prev"),
-                              tab.bands, ((C, S), (C, max(S - 1, 0)),
-                                          (C, max(S - 2, 0)), (C,), (C,))):
-        _expect(b, name, shape, torch.float32)
-        named[name] = b
+    expect(tab.lcmap, "lcmap", tab.lcmap.shape, torch.int32)
+    named = {**dict(zip(_CARRY, carry)), "rows": rows,
+             **cuda_libs.expect_bands(tab.bands, C, S)}
     named.update({k: v for k, v in tab._asdict().items()
                   if isinstance(v, torch.Tensor)})
-    _contiguous(named)
+    cuda_libs.contiguous(named)
     return named
 
 
 def _ready(S: int) -> None:
-    if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"the kernels take 1 to {MAX_STATES} states, "
-                         f"got {S}")
+    cuda_libs.expect_states(S, MAX_STATES)
     if _lib is None:
         build()
 
@@ -265,7 +233,7 @@ def step_exits(carry: Carry, rows: torch.Tensor, tab: Tables) -> Exits:
     score row xsr of the frame's rows [B, n_xs, S] f32.  Returns `Exits`;
     the carry is not modified."""
     named = _check_inputs(carry, rows, tab)
-    dev = _device(named.values())
+    dev = cuda_libs.one_device(named.values(), "mpx-step")
     if dev.type == "cpu":
         return step_exits_ref(carry, rows, tab)
     B, C, S = carry[0].shape
@@ -298,25 +266,20 @@ def prune_enter(carry: Carry, rows: torch.Tensor, st: Exits,
     rows only, and they are returned."""
     named = _check_inputs(carry, rows, tab)
     B, C, S = carry[0].shape
-    _expect(st.ex, "ex", (B, C), torch.float32)
-    _expect(st.exh3, "exh3", (B, C, 3), torch.int32)
-    _expect(st.best, "best", (B,), torch.float32)
+    expect(st.ex, "ex", (B, C), torch.float32)
+    expect(st.exh3, "exh3", (B, C, 3), torch.int32)
+    expect(st.best, "best", (B,), torch.float32)
     if ent_w.dim() != 2 or ent_w.shape[0] != B:
         raise ValueError(f"ent_w must be [{B}, W], got {tuple(ent_w.shape)}")
     W = ent_w.shape[1]
-    _expect(ent_w, "ent_w", (B, W), torch.float32)
-    _expect(ent_pay, "ent_pay", (B, W, 4), torch.int32)
-    _expect(valid, "valid", (B,), torch.bool)
-    if la_t is not None:
-        if la_t.dim() != 2 or la_t.shape[0] != B:
-            raise ValueError(f"la_t must be [{B}, n_ci], got "
-                             f"{tuple(la_t.shape)}")
-        _expect(la_t, "la_t", la_t.shape, torch.float32)
-        if la_t.stride(1) != 1:
-            raise ValueError("la_t's rows must be contiguous")
-    _contiguous({"ex": st.ex, "exh3": st.exh3, "best": st.best,
-                 "ent_w": ent_w, "ent_pay": ent_pay})
-    dev = _device([*named.values(), *st, ent_w, ent_pay, la_t, valid])
+    expect(ent_w, "ent_w", (B, W), torch.float32)
+    expect(ent_pay, "ent_pay", (B, W, 4), torch.int32)
+    expect(valid, "valid", (B,), torch.bool)
+    cuda_libs.expect_lookahead(la_t, B)
+    cuda_libs.contiguous({"ex": st.ex, "exh3": st.exh3, "best": st.best,
+                          "ent_w": ent_w, "ent_pay": ent_pay})
+    dev = cuda_libs.one_device(
+        [*named.values(), *st, ent_w, ent_pay, la_t, valid], "mpx-step")
     if dev.type == "cpu":
         return prune_enter_ref(carry, rows, st, ent_w, ent_pay, la_t, valid,
                                tab)

@@ -1,5 +1,5 @@
 """The one-copy prefix-tree frame step's channel update
-(`NgramSearch._step_tree`) as two hand-written CUDA kernels, and their
+(`ngram_steps.TreeStep`) as two hand-written CUDA kernels, and their
 plain PyTorch version.
 
     step_exits   (kernel A)  alpha0, hist0 [B, C, S] (the entry ages),
@@ -26,8 +26,8 @@ For CPU tensors the wrappers run the plain version (`step_exits_ref`,
 as the search composed them).  For CUDA tensors they launch the kernels of
 `csrc/tree_step.cu` on the current stream, or raise; they never fall back
 from one to the other.  `launches` counts the kernels' launches by name.
-The other frame steps (static, multiplexed, N tree copies) and the other
-searches keep `ops/hmm.py` and share nothing with these kernels.
+The static step, the tree copies and the other searches keep
+`ops/hmm.py`; the mpx step has its own kernels (`ops/mpx_step.py`).
 
 The library is built with K1's (`cuda_libs.build_all`): at first use,
 with nvcc for sm_90a into `build/kernels`, named by a hash of its source,
@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda_libs
+from .cuda_libs import expect
 from .hmm import NEG_INF, hmm_enter, hmm_step
 
 LIBRARY = "tree_step"
@@ -168,47 +169,17 @@ def prune_enter_ref(alpha0, hist0, st: Stepped, ent, corr, la_t, valid,
 
 
 # ----------------------------------------------------------------------
-def _expect(t: torch.Tensor, name: str, shape, dtype) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
-def _device(tensors) -> torch.device:
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no tree-step kernel for device {dev}")
-    return dev
-
-
-def _check_tables(tab: Tables, C: int, S: int) -> None:
+def _check_tables(tab: Tables, C: int, S: int) -> dict:
+    """Check the tables; returns their tensors by name."""
     for name in ("xs", "pc", "root", "ci_of"):
-        _expect(getattr(tab, name), name, (C,), torch.int32)
+        expect(getattr(tab, name), name, (C,), torch.int32)
     for name in ("has_prev", "is_entry"):
-        _expect(getattr(tab, name), name, (C,), torch.bool)
+        expect(getattr(tab, name), name, (C,), torch.bool)
     for name in ("la_delta", "la_entry"):
-        _expect(getattr(tab, name), name, (C,), torch.float32)
-    for name, b, shape in zip(("d0", "d1", "d2", "e_last", "e_prev"),
-                              tab.bands, ((C, S), (C, max(S - 1, 0)),
-                                          (C, max(S - 2, 0)), (C,), (C,))):
-        _expect(b, name, shape, torch.float32)
-
-
-def _table_fields(tab: Tables) -> dict:
+        expect(getattr(tab, name), name, (C,), torch.float32)
     return {**{k: v for k, v in tab._asdict().items()
                if isinstance(v, torch.Tensor)},
-            **dict(zip(("d0", "d1", "d2", "e_last", "e_prev"), tab.bands))}
-
-
-def _contiguous(tensors) -> None:
-    for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            **cuda_libs.expect_bands(tab.bands, C, S)}
 
 
 def step_exits(alpha0: torch.Tensor, hist0: torch.Tensor, rows: torch.Tensor,
@@ -218,21 +189,17 @@ def step_exits(alpha0: torch.Tensor, hist0: torch.Tensor, rows: torch.Tensor,
     frame's senone-sequence scores, each channel reading row `tab.xs`).
     Returns `Stepped`; the inputs are not modified."""
     B, C, S = alpha0.shape
-    _expect(hist0, "hist0", (B, C, S), torch.uint8)
-    _expect(alpha0, "alpha0", (B, C, S), torch.float32)
-    if rows.dim() != 3 or rows.shape[0] != B or rows.shape[2] != S:
-        raise ValueError(f"rows must be [{B}, n_xs, {S}], got "
-                         f"{tuple(rows.shape)}")
-    _expect(rows, "rows", rows.shape, torch.float32)
-    _check_tables(tab, C, S)
-    _contiguous({"alpha0": alpha0, "hist0": hist0, "rows": rows,
-                 **_table_fields(tab)})
-    dev = _device([alpha0, hist0, rows, *_table_fields(tab).values()])
+    expect(hist0, "hist0", (B, C, S), torch.uint8)
+    expect(alpha0, "alpha0", (B, C, S), torch.float32)
+    cuda_libs.expect_rows(rows, B, S)
+    named = _check_tables(tab, C, S)
+    cuda_libs.contiguous({"alpha0": alpha0, "hist0": hist0, "rows": rows,
+                          **named})
+    dev = cuda_libs.one_device([alpha0, hist0, rows, *named.values()],
+                               "tree-step")
     if dev.type == "cpu":
         return step_exits_ref(alpha0, hist0, rows, tab)
-    if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"the kernels take 1 to {MAX_STATES} states, "
-                         f"got {S}")
+    cuda_libs.expect_states(S, MAX_STATES)
     if _lib is None:
         build()
     out = Stepped(torch.empty_like(alpha0), torch.empty_like(hist0),
@@ -261,39 +228,31 @@ def prune_enter(alpha0: torch.Tensor, hist0: torch.Tensor, st: Stepped,
     `hmm_enter`, and valid [B] bool: the new carry is written into alpha0
     and hist0, on valid rows only, and they are returned."""
     B, C, S = alpha0.shape
-    _expect(alpha0, "alpha0", (B, C, S), torch.float32)
-    _expect(hist0, "hist0", (B, C, S), torch.uint8)
+    expect(alpha0, "alpha0", (B, C, S), torch.float32)
+    expect(hist0, "hist0", (B, C, S), torch.uint8)
     for name, t, shape, dtype in zip(
             Stepped._fields, st, ((B, C, S), (B, C, S), (B, C), (B, C), (B,)),
             (torch.float32, torch.uint8, torch.float32, torch.uint8,
              torch.float32)):
-        _expect(t, name, shape, dtype)
-    _expect(ent, "ent", (B,), torch.float32)
-    _expect(valid, "valid", (B,), torch.bool)
+        expect(t, name, shape, dtype)
+    expect(ent, "ent", (B,), torch.float32)
+    expect(valid, "valid", (B,), torch.bool)
     if corr is not None:
         if corr.dim() != 2 or corr.shape[0] != B:
             raise ValueError(f"corr must be [{B}, R], got "
                              f"{tuple(corr.shape)}")
-        _expect(corr, "corr", corr.shape, torch.float32)
-    if la_t is not None:
-        if la_t.dim() != 2 or la_t.shape[0] != B:
-            raise ValueError(f"la_t must be [{B}, n_ci], got "
-                             f"{tuple(la_t.shape)}")
-        _expect(la_t, "la_t", la_t.shape, torch.float32)
-    _check_tables(tab, C, S)
-    _contiguous({"alpha0": alpha0, "hist0": hist0, "ent": ent,
-                 **dict(zip(Stepped._fields, st)), **_table_fields(tab),
-                 **({} if corr is None else {"corr": corr})})
-    if la_t is not None and la_t.stride(1) != 1:
-        raise ValueError("la_t's rows must be contiguous")
-    dev = _device([alpha0, hist0, *st, ent, corr, la_t, valid,
-                   *_table_fields(tab).values()])
+        expect(corr, "corr", corr.shape, torch.float32)
+    cuda_libs.expect_lookahead(la_t, B)
+    named = _check_tables(tab, C, S)
+    cuda_libs.contiguous({"alpha0": alpha0, "hist0": hist0, "ent": ent,
+                          **dict(zip(Stepped._fields, st)), **named,
+                          **({} if corr is None else {"corr": corr})})
+    dev = cuda_libs.one_device([alpha0, hist0, *st, ent, corr, la_t, valid,
+                                *named.values()], "tree-step")
     if dev.type == "cpu":
         return prune_enter_ref(alpha0, hist0, st, ent, corr, la_t, valid,
                                tab)
-    if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"the kernels take 1 to {MAX_STATES} states, "
-                         f"got {S}")
+    cuda_libs.expect_states(S, MAX_STATES)
     if _lib is None:
         build()
     with torch.cuda.device(dev):

@@ -39,7 +39,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..decode.ngram_search import _argmax_first
+from ..decode.ngram_steps import _argmax_first
 from .sentence_hmm import SentHmm
 
 NEG = -1.0e30

@@ -42,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.models.gauden import GaussianParams
 from cmusphinx_tpu_torch.decode import NgramSearch, ngram_search
+from cmusphinx_tpu_torch.decode.ngram_steps import LexTreeStep, StaticStep
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, InterpolatedScorer,
                                      PsParityScorer, PtmParityScorer,
@@ -471,7 +472,8 @@ def test_large_vocab_decode_on_card_matches_cpu(cuda, lexmode, kw):
         s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
                         ContinuousScorer(fx.gauden, fx.ln_mixw, device=dev),
                         device=dev, lexmode=lexmode, **kw)
-        assert s._fast and s._tree == (lexmode == "tree")
+        assert isinstance(s.step, StaticStep if lexmode == "flat"
+                          else LexTreeStep)
         hyps = s.decode_batch_cep(fx.ceps, FeatPipeline(fx.feat_config(),
                                                         device=dev))
         runs.append((hyps, [a.cpu().numpy() for a in s._last_batch[0]]))
@@ -956,12 +958,12 @@ def _card_search(cuda, fx, **kw):
 def _run(s, graphs: bool, fn):
     """fn() with the search's frame loop graphed or eager; returns (its
     result, the LM calls it made)."""
-    s._graphs = graphs
+    s._runner.graphs = graphs
     s.dlm.calls.clear()
     try:
         out = fn()
     finally:
-        s._graphs = True
+        s._runner.graphs = True
     torch.cuda.synchronize()
     return out, dict(s.dlm.calls)
 
@@ -986,7 +988,7 @@ def test_graphed_frame_loop_bit_equal_to_eager(cuda, case):
     """Each step kind on the card: the batch, a batch whose blocks of 37
     frames leave a shorter last one, and a stream (37-frame pushes from a
     100-frame tape that grows) through captured graphs against the eager
-    loop (`_graphs = False`): tapes bit-equal, hypotheses and scores
+    loop (`_runner.graphs = False`): tapes bit-equal, hypotheses and scores
     equal, `DeviceNgram.calls` equal; the graphed runs captured blocks
     and replayed them."""
     size, kw = GRAPH_CASES[case]
@@ -1013,7 +1015,7 @@ def test_graphed_frame_loop_bit_equal_to_eager(cuda, case):
     _assert_same_hyps([gh], [eh])
     assert gF == eF > 100 and gcalls == ecalls
     assert all(torch.equal(a, b) for a, b in zip(gt, et))
-    assert len(s._graph_cache) <= ngram_search.GRAPH_CACHE
+    assert len(s._runner.cache) <= ngram_search.GRAPH_CACHE
     assert s.graph_stats["replays"] > 0
 
 
@@ -1037,8 +1039,8 @@ def test_graphed_mixed_lengths_share_graphs(cuda, case):
         _assert_same_hyps(gh, eh)
         assert all(torch.equal(a, b) for a, b in zip(gt, et))
     want = 1 if case == "mpx" else len({s._side_frames(len(c)) for c in ceps})
-    assert s.graph_stats["captures"] == len(s._graph_cache) == want
-    assert s._graph_pool is not None
+    assert s.graph_stats["captures"] == len(s._runner.cache) == want
+    assert s._runner.pool is not None
 
 
 @pytest.mark.parametrize("case", ["mpx", "tree"])
@@ -1197,7 +1199,7 @@ def test_tree_step_kernels_bit_equal_to_plain_on_decodes(cuda, kw,
     fx = fixture.build(0, size=fixture.MEDIUM)
     s = _card_search(cuda, fx, lexmode="tree", **kw)
     log = _held_to_plain(monkeypatch)
-    s._graphs = False
+    s._runner.graphs = False
     s.decode_batch_cep(fx.ceps, FeatPipeline(fx.feat_config(), device=cuda))
     torch.cuda.synchronize()
     valid = torch.stack(log)
@@ -1257,7 +1259,7 @@ def test_tree_step_launches_two_a_frame_across_replays(cuda):
     fp = FeatPipeline(fx.feat_config(), device=cuda)
     counts = []
     for graphs in (True, True, False):
-        s._graphs = graphs
+        s._runner.graphs = graphs
         tree_step.launches.clear()
         n = s.graph_stats["captures"]
         s.decode_batch_cep(fx.ceps, fp)
@@ -1265,7 +1267,7 @@ def test_tree_step_launches_two_a_frame_across_replays(cuda):
         frames = s._last_batch[0][0].shape[1] // s.E
         counts.append((dict(tree_step.launches), frames,
                        s.graph_stats["captures"] - n))
-    s._graphs = True
+    s._runner.graphs = True
     (first, F, caps), (second, F2, caps2), (eager, F3, _) = counts
     assert F == F2 == F3 > 0 and caps > 0 and caps2 == 0
     for c in (first, second, eager):
@@ -1335,7 +1337,7 @@ def test_mpx_step_kernels_bit_equal_to_plain_on_decodes(cuda, case, B,
     assert s.graph.lc_mode == "mpx"
     assert (s.graph.n_rcvar == 1) == (case == "mpx_composite")
     log = _held_to_plain_mpx(monkeypatch)
-    s._graphs = False
+    s._runner.graphs = False
     s.decode_batch_cep(fx.ceps[:B], FeatPipeline(fx.feat_config(),
                                                  device=cuda))
     torch.cuda.synchronize()
@@ -1397,10 +1399,10 @@ def test_mpx_step_decodes_and_streams_equal_eager_and_cpu(cuda, case):
     feats = [fp.compute(c) for c in fx.ceps]
     hyps, tapes = [], []
     for s, graphs in ((card, True), (card, False), (cpu, False)):
-        s._graphs = graphs
+        s._runner.graphs = graphs
         hyps.append(s.decode_batch(feats))
         tapes.append([t.cpu() for t in s._last_batch[0]])
-    card._graphs = True
+    card._runner.graphs = True
     assert card.graph_stats["captures"] > 0
     for h, t in zip(hyps[1:], tapes[1:]):
         _assert_same_hyps(hyps[0], h)
@@ -1422,7 +1424,7 @@ def test_mpx_step_launches_two_a_frame_across_replays(cuda):
     fp = FeatPipeline(fx.feat_config(), device=cuda)
     counts = []
     for graphs in (True, True, False):
-        s._graphs = graphs
+        s._runner.graphs = graphs
         mpx_step.launches.clear()
         tree_step.launches.clear()
         n = s.graph_stats["captures"]
@@ -1431,7 +1433,7 @@ def test_mpx_step_launches_two_a_frame_across_replays(cuda):
         frames = s._last_batch[0][0].shape[1] // s.E
         counts.append((dict(mpx_step.launches), frames,
                        s.graph_stats["captures"] - n, dict(tree_step.launches)))
-    s._graphs = True
+    s._runner.graphs = True
     (first, F, caps, t1), (second, F2, caps2, t2), (eager, F3, _, t3) = counts
     assert F == F2 == F3 > 0 and caps > 0 and caps2 == 0
     assert t1 == t2 == t3 == {}
@@ -1468,17 +1470,18 @@ class HostScores(torch.nn.Module):
 
 s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, HostScores(),
                 device="cuda")
-entries = s._entries
+ro = s.step.ro
+entries = ro.entries
 def reads_host(*a, **k):
     out = entries(*a, **k)
     float(out[0].amax())
     return out
-s._entries = reads_host
+ro.entries = reads_host
 try:
     h = s.decode(feats)
 except RuntimeError as e:
     print("raised:", str(e).splitlines()[0][:200])
-    print("cached:", len(s._graph_cache))
+    print("cached:", len(s._runner.cache))
     sys.exit(0)
 print("decoded without raising:", h.words)
 sys.exit(1)
@@ -1521,14 +1524,14 @@ def _grammar_search(cuda, fx, kind, **kw):
 
 def _both(s, fn):
     """fn() with the search's frame loop graphed, then eager
-    (`_graphs = False`)."""
+    (`_runner.graphs = False`)."""
     out = []
     for graphs in (True, False):
-        s._graphs = graphs
+        s._runner.graphs = graphs
         try:
             out.append(fn())
         finally:
-            s._graphs = True
+            s._runner.graphs = True
         torch.cuda.synchronize()
     return out
 

@@ -46,10 +46,6 @@ CASES = {
     "tree_copies_lookahead": ("medium", {"lexmode": "tree", "nlextree": 3,
                                          "pl_window": 3}),
 }
-STEP = {"mpx": "_step_mpx", "mpx_lookahead": "_step_mpx",
-        "static": "_step_static", "tree": "_step_tree",
-        "tree_copies": "_step_tree_copies",
-        "tree_copies_lookahead": "_step_tree_copies"}
 # Frames a block in the dispatch test, and in the runner's tests (not a
 # divisor of the 100-frame batch bucket nor of the 50-frame stream chunk).
 K_DISPATCH, K_RUNNER = 6, 37
@@ -131,7 +127,7 @@ def _batch_inputs(s, fx, n_utt=2):
     valid = torch.arange(F)[None] < T[:, None]
     scores = s.scorer.score(x)
     la = s._lookahead(scores, F) if s.pl_window else None
-    carry = s._init_static(B, F) if s._fast else s._init_hmmc(B)
+    carry = s.step.init_carry(B, F)
     return scores, valid, la, carry, s._tape(B, F)
 
 
@@ -141,35 +137,38 @@ def test_block_reads_nothing_on_the_host(case, request):
     fx = request.getfixturevalue(size)
     s = _search(fx, kw)
     calls = []
-    orig = getattr(s, STEP[case])
+    orig = s.step.frame
 
     def counted(*a, **k):
         calls.append(1)
         return orig(*a, **k)
-    setattr(s, STEP[case], counted)
+    s.step.frame = counted
     K = K_DISPATCH
     with torch.inference_mode():
         scores, valid, la, carry, tape = _batch_inputs(s, fx)
         records = []
         for k0 in (0, K):
             sl = slice(k0, k0 + K)
-            blk = (scores[:, sl], torch.full((), k0, dtype=torch.int64),
-                   valid[:, sl], tuple(a[:, sl] for a in tape),
-                   None if la is None else la[:, sl])
+            blk = ((scores[:, sl], valid[:, sl],
+                    None if la is None else la[:, sl]),
+                   torch.full((), k0, dtype=torch.int64),
+                   tuple(a[:, sl] for a in tape))
             with _Record() as rec:
                 carry = s._block(carry, *blk)
             records.append(rec.ops)
-    assert len(calls) == 2 * K                       # the case's own step
+    assert len(calls) == 2 * K                       # the search's step
     first, second = records
     assert len(first) > 50 * K
     assert _host_reads(first) == [] and _host_reads(second) == []
     assert [op[0] for op in first] == [op[0] for op in second]
     assert first == second
-    # Every frame writes its six rows of the block's tape, and the static
-    # and tree steps their side-table rows at the device index.
+    # Every frame writes its six rows of the block's tape, and its rows of
+    # each side-table the carry holds (those a stream's `grow` grows: the
+    # static and tree steps') at the device index.
     assert sum(op[0] == "aten::copy_" for op in first) >= 6 * K
-    if s._fast:
-        assert sum(op[0] == "aten::index_copy_" for op in first) >= K
+    sides = sum(a.shape != b.shape for a, b in zip(carry,
+                                                    s.step.grow(carry)))
+    assert sum(op[0] == "aten::index_copy_" for op in first) >= sides * K
 
 
 @pytest.fixture(scope="module")
@@ -208,7 +207,7 @@ def test_block_runner_batch_matches_reference(case, request, reference):
     assert lens[0] > 2 * K_RUNNER
     assert_tapes_match(tapes, jtapes, E)
     assert_hyps_match(hyps, jhyps)
-    assert not s._graph_cache and s.graph_stats["captures"] == 0
+    assert not s._runner.cache and s.graph_stats["captures"] == 0
 
 
 @pytest.mark.parametrize("case", ["mpx_lookahead", "static", "tree_copies"])
@@ -234,7 +233,7 @@ def test_block_runner_stream_matches_reference(case, request):
         [a[0].reshape((F * E,) + tuple(a.shape[3:])).numpy()
          for a in st["tape"]],
         [np.asarray(a) for a in jst["carry"][-1]], E)
-    assert not s._graph_cache
+    assert not s._runner.cache
 
 
 def test_default_blocks_cover_a_batch_and_a_chunk(small, medium,

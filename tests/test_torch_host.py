@@ -450,7 +450,7 @@ def _imports(path):
 
 def test_no_port_file_imports_jax_or_the_reference():
     files = sorted((ROOT / "cmusphinx_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+    files += [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {f"cmusphinx_tpu_torch/{m}.py" for m in (
@@ -491,7 +491,8 @@ def test_port_has_every_module_of_the_reference():
     ref, port = _modules("cmusphinx_tpu"), _modules("cmusphinx_tpu_torch")
     assert ref - port == {"ops/pallas_gmm"}
     assert port - ref == {"convert", "fixture", "decode/graphs",
-                          "decode/results", "ops/cuda_libs",
+                          "decode/ngram_steps", "decode/results",
+                          "ops/cuda_libs",
                           "ops/fused_gmm", "ops/mpx_step", "ops/ptm_parity",
                           "ops/tree_step",
                           "parallel/dryrun", "parallel/senone_shard"}

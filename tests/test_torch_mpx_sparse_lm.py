@@ -1,4 +1,4 @@
-"""Port parity for the multiplexed-left-context search (`_step_mpx`) on the
+"""Port parity for the multiplexed-left-context search (`MpxStep`) on the
 large-vocabulary graphs of the MEDIUM fixture, whose LM is above the
 dense-table limit: composite right contexts with mpx left contexts (the
 composite xs rows of `_xs_rows`), and the fanout/mpx graph, both taking
@@ -13,6 +13,7 @@ from cmusphinx_tpu.frontend.feat import FeatPipeline as JaxFeat
 from cmusphinx_tpu.ops.gmm import ContinuousScorer as JaxScorer
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.decode.ngram_steps import MpxStep
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import ContinuousScorer
 from test_torch_ngram_search import assert_search_matches_reference
@@ -43,7 +44,7 @@ def test_mpx_search_over_sparse_lm_matches_reference(medium, rc):
                      device="cpu", rcmode=rc, lcmode="mpx")
     g = ts.graph
     assert (g.rc_mode, g.lc_mode, g.lex_mode) == (rc, "mpx", "flat")
-    assert not ts._fast
+    assert isinstance(ts.step, MpxStep)
     assert (g.n_xs > g.n_sing) == (rc == "composite")
     assert ts.dlm.tg_dense is None
     hyps, _ = assert_search_matches_reference(

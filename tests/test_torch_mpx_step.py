@@ -4,13 +4,13 @@ wrappers' contract and where the search calls them.
 - On CPU tensors `step_exits` and `prune_enter` run their plain version
   and launch nothing; `prune_enter` writes the new carry into the old one,
   on valid rows only.
-- The plain version equals the composition `_step_mpx` ran before it
+- The plain version equals the composition the mpx step ran before it
   (`hmm_step` through a `gather` of the senone rows, `_prune`, the
   propagation and entry routing, `hmm_enter`, the valid mask; int64
   payloads) bit for bit, with planted ties, NEG_INF states, padded rows,
   the phone-loop lookahead on and off, the beams on and off.
 - They raise on a wrong dtype, shape or device.
-- Only the mpx step (`_step_mpx`) calls them: the static step, the tree
+- Only the mpx step (`MpxStep`) calls them: the static step, the tree
   and the tree copies never.
 - `least_bytes` at the PTM cell's shape.
 
@@ -77,7 +77,7 @@ def planted(S, C, B, n_xs, W, n_ci, seed, n_lc=13):
 
 
 def previous_step(carry, rows, tab, ent_w, ent_pay, la_t, valid):
-    """The channel update as `_step_mpx` composed it before `mpx_step`:
+    """The channel update as the mpx step composed it before `mpx_step`:
     int64 payloads, the senone rows gathered to [B, C, S], `hmm_step`,
     `_prune`, the propagation and entry routing, `hmm_enter`, the valid
     mask.  Returns (the new carry, the pruned exits and their payloads)."""
@@ -247,7 +247,7 @@ def medium():
     ("medium", {"lexmode": "tree", "nlextree": 2}, 0)])
 def test_only_the_mpx_step_calls_the_wrappers(size, kw, calls, request,
                                               monkeypatch):
-    """A block of frames of each step: `_step_mpx` calls each wrapper once
+    """A block of frames of each step: `MpxStep` calls each wrapper once
     a frame (fanout and composite exits), the static step, the one-copy
     tree and the tree copies never."""
     fx, K = request.getfixturevalue(size), 4
@@ -267,13 +267,14 @@ def test_only_the_mpx_step_calls_the_wrappers(size, kw, calls, request,
     B, F = x.shape[0], x.shape[1]
     scores = s.scorer.score(x)
     la = s._lookahead(scores, F) if s.pl_window else None
-    carry = s._init_static(B, F) if s._fast else s._init_hmmc(B)
+    carry = s.step.init_carry(B, F)
     tape = s._tape(B, F)
     with torch.inference_mode():
-        s._block(carry, scores[:, :K], torch.zeros((), dtype=torch.int64),
-                 (torch.arange(F)[None] < T[:, None])[:, :K],
-                 tuple(a[:, :K] for a in tape),
-                 None if la is None else la[:, :K])
+        s._block(carry, (scores[:, :K],
+                         (torch.arange(F)[None] < T[:, None])[:, :K],
+                         None if la is None else la[:, :K]),
+                 torch.zeros((), dtype=torch.int64),
+                 tuple(a[:, :K] for a in tape))
     assert seen == ["step_exits", "prune_enter"] * (K * calls)
 
 

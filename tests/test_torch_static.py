@@ -1,5 +1,5 @@
 """Port parity for the static-senone search (composite left contexts, flat
-lexicon: `_step_static`, `_expand_block`, `score_rows`) against the JAX
+lexicon: `StaticStep`, `score_rows`) against the JAX
 package on the MEDIUM fixture (1,200 words, an LM above the dense-table
 limit), with the reference scoring through `ContinuousScorer(use_pallas=
 False)`: both the batched path (`decode_batch_cep`) and one utterance
@@ -22,6 +22,7 @@ from cmusphinx_tpu.ops.gmm import ContinuousScorer as JaxScorer
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.decode import NgramSearch
 from cmusphinx_tpu_torch.decode.ngram_search import topk2
+from cmusphinx_tpu_torch.decode.ngram_steps import StaticStep
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import ContinuousScorer
 from test_torch_ngram_search import assert_search_matches_reference
@@ -59,7 +60,7 @@ def test_static_search_matches_reference(medium, modes, rc):
     js, ts = _searches(medium, **modes)
     g = ts.graph
     assert (g.rc_mode, g.lc_mode, g.lex_mode) == (rc, "composite", "flat")
-    assert ts._fast and not ts._tree
+    assert isinstance(ts.step, StaticStep)
     assert (g.n_rcvar > 1) == (rc == "fanout")
     assert ts.dlm.tg_dense is None and js.dlm.tg_dense is None
     hyps, _ = assert_search_matches_reference(medium["fx"], js, ts,
@@ -74,7 +75,7 @@ def test_auto_picks_the_reference_modes(medium):
     got = (ts.graph.rc_mode, ts.graph.lc_mode, ts.graph.lex_mode)
     assert got == (js.graph.rc_mode, js.graph.lc_mode, js.graph.lex_mode) \
         == ("composite", "composite", "flat")
-    assert ts.E == js.E and ts._chain_shift == js._chain_shift
+    assert ts.E == js.E and ts.step._chain_shift == js._chain_shift
     assert (ts.dlm.probe, ts.dlm.hashed) == (js.dlm.probe, js.dlm.hashed) \
         == (False, True)
     # Below 1000 words: fanout + mpx; tree needs composite contexts.

@@ -1,4 +1,4 @@
-"""Port parity for the prefix-tree lexicon (`_step_tree`,
+"""Port parity for the prefix-tree lexicon (`TreeStep`,
 `_setup_tree_bgla`, `_bgla_rows`) against the JAX package on the MEDIUM
 fixture: the batched path against the reference's `_make_core_tree_batched`
 and one utterance against its unbatched one-copy `_make_core_tree`, with
@@ -21,6 +21,7 @@ from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.utils.bio import write_mfc
 from cmusphinx_tpu_torch.api import Decoder
 from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.decode.ngram_steps import TreeCopiesStep, TreeStep
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import ContinuousScorer
 from test_torch_ngram_search import (assert_hyps_match,
@@ -53,15 +54,17 @@ def test_tree_search_matches_reference(medium, treela):
     g = ts.graph
     assert (g.rc_mode, g.lc_mode, g.lex_mode) == ("composite", "composite",
                                                   "tree")
-    assert g.exit_base >= 0 and ts.use_bgla == (treela == "bg")
-    assert ts._n_roots == js._n_roots
-    np.testing.assert_array_equal(ts._entc0.numpy(), np.asarray(js._entc0))
-    np.testing.assert_array_equal(ts._la_delta_c.numpy(),
+    st = ts.step
+    assert isinstance(st, TreeStep)
+    assert g.exit_base >= 0 and st.use_bgla == (treela == "bg")
+    assert st._n_roots == js._n_roots
+    np.testing.assert_array_equal(st._entc0.numpy(), np.asarray(js._entc0))
+    np.testing.assert_array_equal(st._la_delta_c.numpy(),
                                   np.asarray(js._la_delta_c))
-    if ts.use_bgla:
-        np.testing.assert_array_equal(ts._corr0.numpy(),
+    if st.use_bgla:
+        np.testing.assert_array_equal(st._corr0.numpy(),
                                       np.asarray(js._corr0_j))
-        assert ts._bgla_maxrow == js._bgla_maxrow > 0
+        assert st._bgla_maxrow == js._bgla_maxrow > 0
     jfp, fp = JaxFeat(fx.feat_config()), FeatPipeline(fx.feat_config(),
                                                       device="cpu")
     hyps, _ = assert_search_matches_reference(fx, js, ts, jfp, fp)
@@ -79,7 +82,7 @@ def test_tree_search_matches_reference(medium, treela):
 
 @pytest.mark.parametrize("n", [2, 3])
 def test_tree_copies_match_reference(medium, n):
-    """N tree copies (`nlextree`, `_step_tree_copies`): the batch and one
+    """N tree copies (`nlextree`, `TreeCopiesStep`): the batch and one
     utterance against the reference's N-copy `_make_core_tree`, tapes,
     chase arrays and hypotheses."""
     fx = medium
@@ -89,13 +92,14 @@ def test_tree_copies_match_reference(medium, n):
     ts = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
                      ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu"),
                      device="cpu", **kw)
-    assert ts.nlextree == js.nlextree == n and ts.use_bgla
+    assert ts.nlextree == js.nlextree == n and ts.step.use_bgla
+    assert isinstance(ts.step, TreeCopiesStep)
     jfp, fp = JaxFeat(fx.feat_config()), FeatPipeline(fx.feat_config(),
                                                       device="cpu")
     hyps, (tw, *_) = assert_search_matches_reference(fx, js, ts, jfp, fp)
     assert [h.words for h in hyps] == fx.transcripts
     # The copies hold distinct histories: the carry has N of them.
-    assert ts._init_static(1, 100)[0].shape[1] == n
+    assert ts.step.init_carry(1, 100)[0].shape[1] == n
 
 
 def test_tree_decoder_matches_reference(medium, tmp_path):

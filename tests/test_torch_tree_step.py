@@ -5,8 +5,8 @@ the wrappers' contract and where the search calls them.
   and launch nothing; `prune_enter` writes the new carry into the old one,
   on valid rows only.
 - They raise on a wrong dtype, shape or device.
-- Only the one-copy tree step (`_step_tree`) calls them: the static step
-  and the tree copies keep `ops/hmm.py`.
+- Only the one-copy tree step (`ngram_steps.TreeStep`) calls them: the
+  static step and the tree copies keep `ops/hmm.py`.
 - `_block_len`: the static step's block at the semi cell's shapes is what
   it was; the one-copy tree counts its senone-sequence rows.
 
@@ -23,6 +23,8 @@ import torch
 
 from cmusphinx_tpu_torch import fixture
 from cmusphinx_tpu_torch.decode import NgramSearch
+from cmusphinx_tpu_torch.decode.ngram_steps import (StaticStep,
+                                                    TreeCopiesStep, TreeStep)
 from cmusphinx_tpu_torch.frontend import FeatPipeline
 from cmusphinx_tpu_torch.ops import ContinuousScorer, tree_step
 from cmusphinx_tpu_torch.ops.hmm import NEG_INF
@@ -143,7 +145,7 @@ def medium():
     ({"lexmode": "tree"}, 1), ({"lexmode": "tree", "pl_window": 3}, 1)])
 def test_only_the_one_copy_tree_step_calls_the_wrappers(medium, kw, calls,
                                                          monkeypatch):
-    """A block of frames of each step: `_step_tree` calls each wrapper once
+    """A block of frames of each step: `TreeStep` calls each wrapper once
     a frame, the static step and the tree copies never."""
     fx, K = medium, 4
     s = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat,
@@ -159,23 +161,24 @@ def test_only_the_one_copy_tree_step_calls_the_wrappers(medium, kw, calls,
     B, F = x.shape[0], x.shape[1]
     scores = s.scorer.score(x)
     la = s._lookahead(scores, F) if s.pl_window else None
-    carry = s._init_static(B, F)
+    carry = s.step.init_carry(B, F)
     tape = s._tape(B, F)
     with torch.inference_mode():
-        s._block(carry, scores[:, :K], torch.zeros((), dtype=torch.int64),
-                 (torch.arange(F)[None] < T[:, None])[:, :K],
-                 tuple(a[:, :K] for a in tape),
-                 None if la is None else la[:, :K])
+        s._block(carry, (scores[:, :K],
+                         (torch.arange(F)[None] < T[:, None])[:, :K],
+                         None if la is None else la[:, :K]),
+                 torch.zeros((), dtype=torch.int64),
+                 tuple(a[:, :K] for a in tape))
     assert seen == ["step_exits", "prune_enter"] * (K * calls)
 
 
-def _block_len(B, n, n_chan, n_xs, comp, tree, nlextree=1):
-    """`NgramSearch._block_len` on a graph of these sizes (S = 3)."""
+def _block_len(B, n, n_chan, n_xs, comp, step):
+    """`NgramSearch._block_len` with the frame step class `step` on a
+    graph of these sizes (S = 3)."""
     stub = SimpleNamespace(
-        FRAME_BUCKET=NgramSearch.FRAME_BUCKET, _fast=True, _tree=tree,
-        nlextree=nlextree, graph=SimpleNamespace(
-            n_chan=n_chan, n_xs=n_xs, n_emit_state=3,
-            comp_mem=SimpleNamespace(size=comp)))
+        FRAME_BUCKET=NgramSearch.FRAME_BUCKET, step=step,
+        graph=SimpleNamespace(n_chan=n_chan, n_xs=n_xs, n_emit_state=3,
+                              comp_mem=SimpleNamespace(size=comp)))
     return NgramSearch._block_len(stub, B, n)
 
 
@@ -187,12 +190,12 @@ def test_block_len_static_unchanged_tree_counts_its_rows():
     only its rows in one copy: blocks of 5 frames, where its expansion to
     every channel (the tree copies' block) allows 2."""
     semi, hub = (25487, 16570, 300390), (262717, 60636, 328536)
-    assert [_block_len(16, n, *semi, tree=False)
+    assert [_block_len(16, n, *semi, StaticStep)
             for n in (200, 600, 1600)] == [5, 5, 5]
-    assert _block_len(1, 50, *semi, tree=False) == 50
-    assert _block_len(16, 600, *hub, tree=True) == 5
-    assert _block_len(16, 600, *hub, tree=True, nlextree=2) == 2
-    assert _block_len(1, 50, *hub, tree=True) == 50
+    assert _block_len(1, 50, *semi, StaticStep) == 50
+    assert _block_len(16, 600, *hub, TreeStep) == 5
+    assert _block_len(16, 600, *hub, TreeCopiesStep) == 2
+    assert _block_len(1, 50, *hub, TreeStep) == 50
 
 
 def test_every_library_builds_in_one_parallel_step(tmp_path, monkeypatch):
