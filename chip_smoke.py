@@ -54,9 +54,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    equal.
 9. large_vocab_static: the LARGE semi-continuous fixture cut to 5,000 words
    with PsParityScorer under `auto`, which must pick the flat
-   composite-context graph (the static-senone step) with `score_rows`
-   entries; the same numbers, and the same CPU hold over all 16
-   utterances of the batch.
+   composite-context graph (the static-senone step) over the LM's
+   `score_rows` backend, its entries answered by the entries kernel
+   (`lm_entries`, once a frame step); the same numbers, and the same CPU
+   hold over all 16 utterances of the batch.
 10. k1 at the stream's shape: phase 3's checks and times at T=50 (one
    50-frame chunk of a stream).
 11. stream: four utterances of the continuous fixture (the batch features
@@ -225,7 +226,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    tree, none in a flat lexicon's decode), and phases 4, 8, 9, 11, 12 and
    35 the mpx step's (`mpx_step.launches`: two a frame step of a flat
    lexicon with exact left contexts, none in the static and tree
-   decodes).
+   decodes) and the entries kernel's (`lm_entries.launches`: one a frame
+   step of a flat lexicon whose LM has no dense table, none in the tree
+   decodes and over a dense table).
 35. ptm: pocketsphinx's en-us PTM model at its widths (`PTM_SIZE`: the
    fixture's `ptm8` kind, 5,126 senones, a codebook of 128 Gaussians a CI
    phone and stream, 3 streams of 13, an 8-bit sendump) written as a
@@ -247,13 +250,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the phone-loop lookahead; the time of each kernel and of the plain
    version (CUDA events), and their bound (`mpx_step.least_bytes` over the
    memory rate).
+37. lm_entries: the cross-word entry readout's kernel (ops/lm_entries.py,
+   csrc/lm_entries.cu) on the readouts of two benchmark configurations
+   (`LM_ENTRIES_CELLS`: the PTM cell's mpx step with its payloads, the
+   semi cell's static step with its tape slots), generated by portbench
+   from SEED and decoded eagerly in a batch of 16 up to frame
+   `LM_ENTRIES_FRAME`: bit-equal to the plain version on the card; the
+   time of each (CUDA events), the LM's list sizes, the live exits and
+   their <s> histories, and the bound (`lm_entries.least_bytes` with the
+   successor entries the histories read, over the memory rate).
 
 The CPU holds run in worker processes while the card goes on, so the
 phases run in the order that hands the holds over first: the host builds
 of 23-24 go to the workers first, then 1-3, 10, 15 (K1), 16, 20-22,
 23-28, 9, 8, 12, 18, then 15 (the Decoder), 4, 11, 14, 17, 5, 29, 6, 7,
 13, 30, 19 and 31; phase 32's cells are measured after 9, 12 and 11,
-phase 33 after 17, phases 34-36 after 3.
+phase 33 after 17, phases 34-37 after 3.
 
 Then the kernel table {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 before any result.
@@ -292,8 +304,9 @@ from cmusphinx_tpu_torch.decode.phone_loop import PhoneLoopSearch
 from cmusphinx_tpu_torch.frontend import FeatPipeline, Frontend, ep
 from cmusphinx_tpu_torch.ops import (ContinuousScorer, PsParityScorer,
                                      PtmParityScorer, SemiContinuousScorer,
-                                     approx, cuda_libs, fused_gmm, mpx_step,
-                                     ptm_parity, subvq, tree_step)
+                                     approx, cuda_libs, fused_gmm,
+                                     lm_entries, mpx_step, ptm_parity, subvq,
+                                     tree_step)
 from cmusphinx_tpu_torch.ops.fused_gmm import (fused_mixture_scores,
                                                fused_mixture_scores_ref)
 from cmusphinx_tpu_torch.models.gauden import read_gauden
@@ -365,6 +378,12 @@ PTM_FRAMES = 9600
 MPX_SHAPE = {"B": 16, "C": 349257, "S": 3, "n_xs": 117980, "W": 64002,
              "n_ci": 40}
 MPX_LC_ROWS = 1522
+# Phase 37: the entries kernel on the readout of two benchmark cells'
+# configurations (portbench's generator, this run's seed), the PTM cell's
+# (mpx step, payloads) and the semi cell's (static step, tape slots), taken
+# at this frame of a batch of their first 16 utterances.
+LM_ENTRIES_CELLS = ("en-us-ptm-64k", "hub4wsj-sc-5k")
+LM_ENTRIES_FRAME = 150
 # Exps a clock on each SM's special-function units (sm_90), at the card's
 # highest SM clock as nvidia-smi reports it (phase 1).  That K1's exps run
 # on these units alone is an assumption of its design, not a hard limit:
@@ -662,16 +681,20 @@ def phase_slice(dev, fx) -> dict:
     # The main path, once, counted: every launch of K1 in this run.
     fused_mixture_scores.launches = 0
     mpx_step.launches.clear()
+    lm_entries.launches.clear()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, fp)
     first_s = time.perf_counter() - t0
     launches = fused_mixture_scores.launches
     mpx_launches = dict(mpx_step.launches)
+    entries_launches = dict(lm_entries.launches)
     if launches < 1:
         raise AssertionError("the decode did not launch K1")
     tapes = [a.cpu().numpy() for a in search._last_batch[0]]
     check_mpx_launches("slice", search, mpx_launches,
                        int(tapes[0].shape[1] // search.E))
+    check_entries_launches("slice", search, entries_launches,
+                           int(tapes[0].shape[1] // search.E))
 
     walls = []
     for _ in range(DECODE_PASSES):
@@ -717,6 +740,7 @@ def phase_slice(dev, fx) -> dict:
            "first_decode_s": first_s, "decode_s": walls,
            "median_decode_s": med, "xRT": fx.audio_seconds / med,
            "k1_launches": launches, "mpx_step_launches": mpx_launches,
+           "lm_entries_launches": entries_launches,
            "tape_slots_differing": slot_diff,
            "tape_int_values_differing": int_diff,
            "tape_float_max_rel_diff": flt_diff,
@@ -1243,12 +1267,25 @@ def check_mpx_launches(name: str, search, counts: dict, steps: int) -> None:
                              f"{counts} over {steps} frame steps, not {want}")
 
 
+def check_entries_launches(name: str, search, counts: dict,
+                           steps: int) -> None:
+    """`lm_entries.launches` over `steps` padded frame steps of `search`:
+    once a step where its readout takes the kernel (a flat lexicon over the
+    LM's score_rows backend), else never."""
+    want = ({"entries": steps} if search.step.ro.lm_tab.succ is not None
+            else {})
+    if counts != want:
+        raise AssertionError(f"{name}: the entries kernel launched {counts} "
+                             f"over {steps} frame steps, not {want}")
+
+
 def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
                       want_lex: str, want_lm: str, hold_utts: int | None,
                       holds: Holds) -> dict:
     """A large-vocabulary batch of fixture `spec` under `auto`, counted,
     timed and held against the CPU (its first `hold_utts` utterances, None:
-    all)."""
+    all); `want_lm` names what must answer its LM scores: a backend of
+    `DeviceNgram.calls` or the entries kernel ("entries")."""
     fx = fixture.build(spec[0], model=spec[1], size=spec[2])
     if hold_utts is None:
         hold_utts = len(fx.ceps)
@@ -1269,6 +1306,7 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
     fused_mixture_scores.launches = 0
     tree_step.launches.clear()
     mpx_step.launches.clear()
+    lm_entries.launches.clear()
     search.dlm.calls.clear()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, fp)
@@ -1277,15 +1315,18 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
     launches = fused_mixture_scores.launches
     tree_launches = dict(tree_step.launches)
     mpx_launches = dict(mpx_step.launches)
+    entries_launches = dict(lm_entries.launches)
     lm_calls = dict(search.dlm.calls)
     peak = peak_mb()
-    if lm_calls.get(want_lm, 0) < 1:
-        raise AssertionError(f"{name}: LM answered by {lm_calls}, not "
+    answered = {**lm_calls, **entries_launches}
+    if answered.get(want_lm, 0) < 1:
+        raise AssertionError(f"{name}: LM answered by {answered}, not "
                              f"{want_lm}")
     tapes = [t.cpu().numpy() for t in search._last_batch[0]]
     frames = int(tapes[0].shape[1] // search.E)
     check_tree_launches(name, search, tree_launches, frames)
     check_mpx_launches(name, search, mpx_launches, frames)
+    check_entries_launches(name, search, entries_launches, frames)
 
     walls = []
     for _ in range(DECODE_PASSES):
@@ -1318,7 +1359,9 @@ def phase_large_vocab(dev, card: str, name: str, spec, kind: str,
            "first_decode_s": first_s, "decode_s": walls,
            "median_decode_s": med, "xRT": fx.audio_seconds / med,
            "k1_launches": launches, "tree_step_launches": tree_launches,
-           "mpx_step_launches": mpx_launches, "peak_mb": peak, "hyps_identical_across_passes": True,
+           "mpx_step_launches": mpx_launches,
+           "lm_entries_launches": entries_launches, "peak_mb": peak,
+           "hyps_identical_across_passes": True,
            "word_errors": errs, "ref_words": n_ref, "wer": errs / n_ref,
            "cpu_hold_utterances": hold_utts}
     emit(out)
@@ -1390,6 +1433,7 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
     fused_mixture_scores.launches = 0
     tree_step.launches.clear()
     mpx_step.launches.clear()
+    lm_entries.launches.clear()
     torch.cuda.synchronize()
     holds, lat_ms, chunks, grew = [], [], 0, []
     wall = 0.0
@@ -1404,12 +1448,14 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
     launches = fused_mixture_scores.launches
     tree_launches = dict(tree_step.launches)
     mpx_launches = dict(mpx_step.launches)
+    entries_launches = dict(lm_entries.launches)
     audio_s = sum(len(feats_list[i]) for i in utts) / 100.0
     total, partial = np.array(lat_ms).T
     out = {"phase": name, "utterances": len(utts), "chunk_frames": T_STREAM,
            "chunks": chunks, "k1_launches": launches,
            "tree_step_launches": tree_launches,
-           "mpx_step_launches": mpx_launches, "tape_grew": grew,
+           "mpx_step_launches": mpx_launches,
+           "lm_entries_launches": entries_launches, "tape_grew": grew,
            "audio_s": audio_s, "stream_wall_s": wall,
            "xRT": audio_s / wall,
            "push_partial_ms_p50": float(np.percentile(total, 50)),
@@ -1429,6 +1475,8 @@ def stream_phase(name: str, search, feats_list, tapes, hyps, utts,
                              f"{chunks} chunks")
     check_tree_launches(name, search, tree_launches, chunks * search.CHUNK)
     check_mpx_launches(name, search, mpx_launches, chunks * search.CHUNK)
+    check_entries_launches(name, search, entries_launches,
+                           chunks * search.CHUNK)
     if max_frames[0] < max(len(feats_list[i]) for i in utts) and not any(grew):
         raise AssertionError(f"{name}: the tape never grew")
     return out
@@ -3593,6 +3641,124 @@ def mpx_step_row(r: dict, main_paths) -> dict:
                                  "bound_by")}}
 
 
+class _Taken(Exception):
+    """Ends a decode once the readout's inputs are taken."""
+
+
+def cell_readout(dev, name: str, frame: int):
+    """The readout's inputs (t, ok, wsel, h1, h2, slot_rc and, for the mpx
+    step, lastci) at `frame` of an eager batch of the first 16 utterances
+    of portbench's configuration `name`, generated from SEED, and the
+    search.  The decode stops there."""
+    from portbench import harness, traffic
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "BENCHMARK.json")
+    spec, root = harness.load_spec(bench), harness.root_of(bench)
+    with open(os.path.join(root, harness.find(spec, "configs",
+                                              name)["file"])) as fh:
+        cfg = json.load(fh)
+    mix = traffic.load(harness.mix_path(root, spec, "batch16"))
+    kw, ceps, gen_s = harness.model_dir(cfg, SEED, traffic.lengths(mix))
+    dec = Decoder(device=dev, **kw, **cfg.get("decoder", {}))
+    search, taken = dec.search, {}
+    ro = search.step.ro
+    real = ro.entries
+
+    def take(t, *args):
+        if int(t) == frame:
+            taken["args"] = tuple(None if a is None else a.clone()
+                                  for a in (t, *args))
+            raise _Taken
+        return real(t, *args)
+
+    ro.entries = take
+    search._runner.graphs = False
+    try:
+        search.decode_batch_cep(ceps[:16], dec.fp)
+    except _Taken:
+        pass
+    finally:
+        del ro.entries
+        search._runner.graphs = True
+    return search, taken["args"], gen_s
+
+
+def successor_entries(search, t, ok, wsel, h1, h2, slot_rc, *_) -> int:
+    """The successor entries the readout's live exits read: each h2's
+    bigram list and each (h1, h2) context's trigram list."""
+    dlm, succ = search.dlm, search.step.ro.lm_tab.succ
+    bp, tp = succ.bg_ptr.long(), succ.tg_ptr.long()
+    h2c = h2.clamp_min(0)
+    n = torch.where(ok & (h2 >= 0), bp[h2c + 1] - bp[h2c], 0)
+    if dlm.n >= 3 and dlm.NT:
+        b = dlm._find_bg(h1.clamp_min(0), h2c)
+        b = torch.where(ok & (h1 >= 0) & (h2 >= 0), b, -1)
+        bc = b.clamp_min(0)
+        n = n + torch.where(b >= 0, tp[bc + 1] - tp[bc], 0)
+    return int(n.sum())
+
+
+def phase_lm_entries(dev) -> dict:
+    """Phase 37: the entries kernel on LM_ENTRIES_CELLS' own readouts."""
+    cells = {}
+    for name in LM_ENTRIES_CELLS:
+        search, args, gen_s = cell_readout(dev, name, LM_ENTRIES_FRAME)
+        dlm, tab = search.dlm, search.step.ro.lm_tab
+        got = lm_entries.entries(dlm, tab, *args)
+        want = lm_entries.entries_ref(dlm, tab, *args)
+        equal = all(torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)
+            for a, b in zip(got, want))
+        ms = cuda_ms(lambda: lm_entries.entries(dlm, tab, *args))
+        plain_ms = cuda_ms(lambda: lm_entries.entries_ref(dlm, tab, *args),
+                           reps=3)
+        t, ok, wsel, h1, h2, slot_rc = args[:6]
+        B, E = ok.shape
+        W, n_ci = tab.rssid.shape
+        listed = successor_entries(search, *args)
+        nbytes = lm_entries.least_bytes(B, E, W, slot_rc.shape[2], n_ci,
+                                        payload=len(args) == 7,
+                                        list_entries=listed)
+        lm = search.lm
+        cells[name] = {
+            "shape": {"B": B, "E": E, "W": W, "Vr": slot_rc.shape[2],
+                      "n_ci": n_ci, "payload": len(args) == 7},
+            "frame": LM_ENTRIES_FRAME, "generate_s": gen_s,
+            "step": type(search.step).__name__, "bit_equal": equal,
+            "lm": {"V": lm.n_words, "NB": len(lm.bg_wid),
+                   "NT": len(lm.tg_wid), "MAXB": dlm.MAXB,
+                   "MAXT": dlm.MAXT},
+            "live_exits": int(ok.sum()),
+            "start_histories": int((ok & (h2 == search.start_lmwid)).sum()),
+            "list_entries": listed, "ms": ms, "plain_ms": plain_ms,
+            "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES,
+            "bound_by": "bytes"}
+        del search, args, got, want
+        torch.cuda.empty_cache()
+    out = {"phase": "lm_entries", "cells": cells}
+    emit(out)
+    if not all(c["bit_equal"] for c in cells.values()):
+        raise AssertionError(f"lm_entries: {out}")
+    return out
+
+
+def lm_entries_row(r: dict, main_paths) -> dict:
+    """The kernel-table row of phase 37's result `r` (keyed by the PTM
+    cell's readout, the semi cell's beside it); `launches` sums the
+    kernel's launches over the main-path phases `main_paths`."""
+    ptm, semi = (r["cells"][n] for n in LM_ENTRIES_CELLS)
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by")
+    return {"name": "lm_entries", "route": "cuda",
+            "source": "cmusphinx_tpu_torch/csrc/lm_entries.cu",
+            "replaces": "none: cmusphinx_tpu/decode/ngram_search.py "
+                        "word_transition (XLA-compiled jnp)",
+            "launches": sum(sum(p["lm_entries_launches"].values())
+                            for p in main_paths),
+            **{k: ptm[k] for k in keys},
+            "semi": {k: semi[k] for k in keys}}
+
+
 def phase_ptm(dev) -> dict:
     """Phase 35: the PTM parity kernel on the main path at PTM_SIZE."""
     fx = fixture.build(SEED, model="ptm8", size=PTM_SIZE)
@@ -3608,6 +3774,7 @@ def phase_ptm(dev) -> dict:
     # The main path, once, counted.
     ptm_parity.launches.clear()
     mpx_step.launches.clear()
+    lm_entries.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hyps = search.decode_batch_cep(fx.ceps, dec.fp)
@@ -3615,11 +3782,13 @@ def phase_ptm(dev) -> dict:
     decode_s = time.perf_counter() - t0
     launches = ptm_parity.launches["score"]
     mpx_launches = dict(mpx_step.launches)
+    entries_launches = dict(lm_entries.launches)
     steps = int(search._last_batch[0][0].shape[1] // search.E)
     if search.graph.lc_mode != "mpx":
         raise AssertionError(f"ptm8: the search is {search.graph.lc_mode}, "
                              f"not mpx")
     check_mpx_launches("ptm", search, mpx_launches, steps)
+    check_entries_launches("ptm", search, entries_launches, steps)
     c, T, Ts = search._pad(fx.ceps)
     with torch.inference_mode():
         feats = dec.fp._padded_kernel(c, T, True)
@@ -3639,7 +3808,8 @@ def phase_ptm(dev) -> dict:
     out = {"phase": "ptm", "S": sc.n_sen, "C": sc.n_cb, "F": sc.n_feat,
            "K": sc.n_density, "frames": x.shape[0], "init_s": init_s,
            "decode_s": decode_s, "launches": launches,
-           "mpx_step_launches": mpx_launches, "frame_steps": steps,
+           "mpx_step_launches": mpx_launches,
+           "lm_entries_launches": entries_launches, "frame_steps": steps,
            "word_errors": errs,
            "ref_words": sum(len(r) for r in fx.transcripts),
            "differ_card_plain": differ, "differ_host_plain_64": differ_host,
@@ -3698,6 +3868,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     tree_k = phase_tree_step(dev)
     ptm = phase_ptm(dev)
     mpx_k = phase_mpx_step(dev)
+    entries_k = phase_lm_entries(dev)
     cont = fixture.build(SEED)
     grammar = phase_grammar(dev, cont, tmp, holds)
     train = phase_train(dev, holds, tmp)
@@ -3710,7 +3881,7 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
     card = info["nvidia_smi"]
     static, (fx5k, search, fp, _, _) = phase_large_vocab(
         dev, card, "large_vocab_static", (SEED, "semi", fixture.LARGE_5K),
-        "ps", "flat", "rows", hold_utts=None, holds=holds)
+        "ps", "flat", "entries", hold_utts=None, holds=holds)
     graphs = {"static5k": graph_batch_cell(search, fp, fx5k, card)}
     graphs["static5k"]["graph_memory"] = release_graphs(search)
     del fx5k, search, fp
@@ -3774,7 +3945,9 @@ def run(info: dict, dev, holds: Holds, tmp: str) -> dict:
                                   for m in MODES} for d in D_LOOP}},
         tree_step_row(tree_k, (static, tree, stream_tree, stream)),
         ptm_row(ptm),
-        mpx_step_row(mpx_k, (sl, static, tree, stream_tree, stream, ptm))]}
+        mpx_step_row(mpx_k, (sl, static, tree, stream_tree, stream, ptm)),
+        lm_entries_row(entries_k, (sl, static, tree, stream_tree, stream,
+                                   ptm))]}
 
 
 if __name__ == "__main__":

@@ -73,7 +73,7 @@ from ..models.mdef import Mdef
 from ..models.ngram import NgramModel
 from ..models.ngram_device import DeviceNgram
 from ..models.tmat import TransitionMatrices
-from ..ops import mpx_step, tree_step
+from ..ops import lm_entries, mpx_step, tree_step
 from ..ops.hmm import NEG_INF, hmm_bands
 from ..utils import native
 from ..utils.config import Arg, Config
@@ -244,7 +244,8 @@ class NgramSearch(DeviceTables):
         self.step = self._pick_step(cfg, tmat)
         self.nlextree = self.step.copies
         self._runner = BlockRunner(axis=1, counters=(
-            self.dlm.calls, tree_step.launches, mpx_step.launches))
+            self.dlm.calls, tree_step.launches, mpx_step.launches,
+            lm_entries.launches))
 
         g = self.graph
         self._buf("_rssid_sil", g.rssid[:, self.sil_ci])          # [W]

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import mpx_step, tree_step
+from ..ops import lm_entries, mpx_step, tree_step
 from ..ops.hmm import NEG_INF, hmm_enter, hmm_step
 
 
@@ -88,7 +88,8 @@ class Readout(DeviceTables):
     """The word-exit readout the steps share: E tape slots a frame, W
     words of Vr right-context variants; `lw` (float64, and `lw32`) the
     language weight, `wip32` the log word insertion penalty, `fil_pen`
-    [W] the host's filler penalties."""
+    [W] the host's filler penalties; `lm_tab` the entries' tables
+    (`ops/lm_entries.Tables`)."""
 
     def __init__(self, g, v, dlm, fil_pen, *, E: int, lw: float, lw32: float,
                  wip32: float, start_lmwid: int, prune: bool,
@@ -110,6 +111,17 @@ class Readout(DeviceTables):
         buf("_fil_pen", fil_pen)
         # Offsets of a frame's rows in the history side-table.
         buf("_ar_E", np.arange(E))
+        # The entries' tables; a flat lexicon's over the score_rows backend
+        # (no dense table) adds the LM's successor lists in search-word
+        # space, for the kernel (the tree steps read no entries).
+        succ = None
+        if dlm.tg_dense is None and g.lex_mode == "flat":
+            succ = lm_entries.successors(dlm, self._lmwid_c)
+            for name, x in zip(succ._fields, succ):
+                self.register_buffer("_succ_" + name, x, persistent=False)
+        self.lm_tab = lm_entries.Tables(
+            self._lmwid_c, self._firstci, self._is_filler, self._fil_pen,
+            self._rssid, succ, lw32, wip32)
 
     def variants(self, ex, best=None):
         """The channel exits ex [B, C] by word and variant, exv [B, W, Vr]
@@ -151,32 +163,20 @@ class Readout(DeviceTables):
         ht.index_copy_(1, t * self.E + self._ar_E, torch.where(
             valid_t[:, None, None], torch.stack([h2, h1], -1), -1))
 
-    def entries(self, t, ok, wsel, h1, h2, slot_rc):
-        """Single best cross-word entry per word (word_transition
-        semantics): over this frame's E exit slots, exit score (the exit's
-        rc variant serving the word's first CI phone) + LM or filler
-        bonus, P(w | h1, h2) for every search word (per-history score rows
-        where the LM has no dense table, as the reference's cores do).
-        Returns (entry score [B, W], entry bp slot, best slot)."""
-        B, E = h1.shape
-        if self.dlm.tg_dense is None:
-            rows = self.dlm.score_rows(h1.reshape(-1), h2.reshape(-1))
-            lmw = rows[:, self._lmwid_c].view(B, E, self.W)       # [B, E, W]
-        else:
-            lmw = self.dlm.score_tg(h1[..., None], h2[..., None],
-                                    self._lmwid_c, lanes=E * self.W)
-        bonus = torch.where(self._is_filler, self._fil_pen,
-                            self.lw32 * lmw + self.wip32)
-        if self.Vr == 1:
-            ac = slot_rc                                          # [B, E, 1]
-        else:
-            ac = torch.gather(slot_rc, 2,
-                              self._rssid[wsel[..., None], self._firstci])
-        cand = torch.where(ok[..., None], ac + bonus, NEG_INF)    # [B, E, W]
-        ent_w = cand.amax(1)                                      # [B, W]
-        estar = cand.argmax(1)
-        ebp_w = torch.where(ent_w > NEG_INF * 0.5, t * E + estar, -1)
-        return ent_w, ebp_w, estar
+    def entries(self, t, ok, wsel, h1, h2, slot_rc, lastci=None):
+        """Single best cross-word entry per word over the frame's E exit
+        slots (`ops/lm_entries.py`): (entry score [B, W], tape slot [B, W]
+        int64), or with `lastci` [W] (entry score, payloads [B, W, 4]
+        int32: tape slot, left-context CI phone, h2, h1).  A flat lexicon
+        over the `score_rows` LM backend goes through the wrapper (on the
+        card, the kernel over the successor lists), the dense table through
+        the plain version."""
+        if self.lm_tab.succ is None:
+            return lm_entries.entries_ref(self.dlm, self.lm_tab, t, ok, wsel,
+                                          h1, h2, slot_rc, lastci)
+        return lm_entries.entries(self.dlm, self.lm_tab, t, ok,
+                                  wsel.contiguous(), h1, h2,
+                                  slot_rc.contiguous(), lastci)
 
 
 class Step(DeviceTables):
@@ -258,7 +258,9 @@ class MpxStep(Step):
     and so do the LM histories.  The channel update is `ops/mpx_step.py`:
     on the card two CUDA kernels around the word-exit readout, each state
     reading its senone score through its own row of the frame's
-    extended-senone-sequence rows (no expansion)."""
+    extended-senone-sequence rows (no expansion); the readout's entries
+    and their payloads are one more on the `score_rows` LM backend
+    (`ops/lm_entries.py`)."""
 
     def __init__(self, g, ro: Readout, bands, ent0, sil_ci: int, **kw):
         super().__init__(g, ro, bands, ent0, **kw)
@@ -324,10 +326,8 @@ class MpxStep(Step):
 
         # ---- word entries (take effect next frame): score and payloads
         # (tape slot, left-context CI phone, h2, h1) a word ----
-        ent_w, ebp_w, estar = ro.entries(t, ok, wsel, h1, h2, slot_rc)
-        eh = torch.gather(torch.stack([self._lastci[wsel], h2, h1], -1), 1,
-                          estar[..., None].expand(B, W, 3))
-        ent_pay = torch.cat([ebp_w[..., None], eh], -1).to(torch.int32)
+        ent_w, ent_pay = ro.entries(t, ok, wsel, h1, h2, slot_rc,
+                                    self._lastci)
         return mpx_step.prune_enter(hmmc, rows, st, ent_w, ent_pay, la_t,
                                     valid_t, tab)
 
@@ -441,7 +441,7 @@ class StaticStep(CompositeStep):
                           slot_rc)
 
         # ---- word entries ----
-        ent_w, ebp_w, _ = ro.entries(t, ok, wsel, h1, h2, slot_rc)
+        ent_w, ebp_w = ro.entries(t, ok, wsel, h1, h2, slot_rc)
         ro.record_hist(ht, t, valid_t, h2, h1)
 
         # ---- within-word propagation ----

@@ -6,8 +6,8 @@ sm_90a, at first use, every library not built yet: the units of all of
 them at once, each library then linked into `build/kernels` at the
 repository root (git-ignored), named by a hash of its source, its flags
 and its units.  The kernels' modules (`fused_gmm`, `tree_step`,
-`ptm_parity`, `mpx_step`) load their library with ctypes after it, and
-check their arguments with the `expect*` functions here.  Nothing is
+`ptm_parity`, `mpx_step`, `lm_entries`) load their library with ctypes
+after it, and check their arguments with the `expect*` functions here.  Nothing is
 compiled when this module is imported.
 """
 
@@ -35,6 +35,7 @@ LIBRARIES = {
     "tree_step": (_PKG / "csrc" / "tree_step.cu", [[]]),
     "ptm_parity": (_PKG / "csrc" / "ptm_parity.cu", [[]]),
     "mpx_step": (_PKG / "csrc" / "mpx_step.cu", [[]]),
+    "lm_entries": (_PKG / "csrc" / "lm_entries.cu", [[]]),
 }
 
 

@@ -53,6 +53,8 @@ from cmusphinx_tpu_torch.ops.hmm import hmm_step
 from cmusphinx_tpu_torch.train import bw
 from cmusphinx_tpu_torch.train.sentence_hmm import FlatModel
 from cmusphinx_tpu_torch.train.trainer import Trainer
+from test_torch_lm_entries import CASES as LM_CASES
+from test_torch_lm_entries import case_inputs as lm_case_inputs
 from test_torch_mpx_step import planted as planted_mpx
 from test_torch_tree_step import planted
 
@@ -1768,3 +1770,235 @@ def test_graphed_search_capture_with_a_host_read_raises(cuda, name):
                        cwd=root, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "raised:" in r.stdout and "cached: 0" in r.stdout
+
+
+# ---- the cross-word entry readout's kernel (ops/lm_entries.py) -------------
+
+def _lm_case_on_card(cuda, case):
+    """A case of tests/test_torch_lm_entries.py on the card: the LM without
+    a dense table, the readout's tables with the successor lists built
+    there, and the exits."""
+    from cmusphinx_tpu_torch.models.ngram_device import DeviceNgram
+    from cmusphinx_tpu_torch.ops import lm_entries
+    medium = fixture.build(0, size=fixture.MEDIUM) if case == "medium" \
+        else None
+    lm, _, _, _, tab, ex = lm_case_inputs(case, medium)
+    dlm = DeviceNgram(lm, device=cuda, dense3_limit=0)
+    words = [getattr(tab, k).to(cuda) for k in ("lmwid_c", "firstci",
+                                                "is_filler", "fil_pen",
+                                                "rssid")]
+    succ = lm_entries.successors(dlm, words[0])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(succ, tab.succ))
+    return dlm, tab._replace(**dict(zip(
+        ("lmwid_c", "firstci", "is_filler", "fil_pen", "rssid"), words)),
+        succ=succ), tuple(x.to(cuda) for x in ex)
+
+
+def _kernel_against_plain(dlm, tab, ex):
+    """The kernel and the plain version on the same exits, with and
+    without the payloads: bit-equal, one launch each."""
+    from cmusphinx_tpu_torch.ops import lm_entries
+    for args in (ex[:6], ex):
+        lm_entries.launches.clear()
+        got = lm_entries.entries(dlm, tab, *args)
+        torch.cuda.synchronize()
+        assert dict(lm_entries.launches) == {"entries": 1}
+        want = lm_entries.entries_ref(dlm, tab, *args)
+        assert _same_bits(got, want)
+    return got
+
+
+@pytest.mark.parametrize("case", LM_CASES)
+def test_lm_entries_kernel_bit_equal_to_plain(cuda, case):
+    """The kernel against `entries_ref` on the card, bit for bit, on the
+    CPU tests' planted cases (<s> and -1 histories, fillers, variants
+    through `rssid`, dead lanes and rows, ties across the exits, shared
+    and clamped LM ids, the MEDIUM fixture's LM; 40 exits, more than a
+    block stages at once); the successor lists built on the card equal
+    the CPU's."""
+    _kernel_against_plain(*_lm_case_on_card(cuda, case))
+
+
+def _cell_lm(rng, V=64001, start=0):
+    """A trigram LM at the PTM cell's size: word `start` (<s>) precedes
+    every one of the other 64,000 words, each other word 0-7 words, each
+    bigram 0-3 trigram successors; scores drawn from the seed.  Built
+    without a loop over the entries."""
+    from cmusphinx_tpu_torch.models.ngram import NgramModel
+
+    def lists(n_rows, most, forbid=None):
+        cnt = rng.randint(0, most + 1, n_rows)
+        if forbid is not None:
+            cnt[forbid] = 0
+        row = np.repeat(np.arange(n_rows), cnt)
+        # Distinct within a row: a random start, then steps that sum to
+        # less than V.
+        steps = rng.randint(1, V // (most + 1), len(row))
+        cs = np.concatenate([[0], np.cumsum(steps)])
+        first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        within = cs[1:] - np.repeat(cs[first], cnt)
+        wid = (np.repeat(rng.randint(0, V, n_rows), cnt) + within) % V
+        o = np.lexsort((wid, row))
+        return np.concatenate([[0], np.cumsum(cnt)]), wid[o]
+
+    m = NgramModel()
+    m.n = 3
+    m.words = [f"w{i}" for i in range(V)]
+    m.words[start] = "<s>"
+    m.wid = {w: i for i, w in enumerate(m.words)}
+    m.ug_prob = rng.uniform(-14, -3, V).astype(np.float32)
+    m.ug_bo = rng.uniform(-3, 0, V).astype(np.float32)
+    ptr, wid = lists(V, 7, forbid=start)
+    # <s>'s own list: every other word.
+    cnt = np.diff(ptr)
+    cnt[start] = V - 1
+    m.bg_ptr = np.concatenate([[0], np.cumsum(cnt)])
+    m.bg_wid = np.concatenate([wid[: ptr[start]],
+                               np.delete(np.arange(V), start),
+                               wid[ptr[start]:]]).astype(np.int32)
+    NB = len(m.bg_wid)
+    m.bg_prob = rng.uniform(-10, -1, NB).astype(np.float32)
+    m.bg_bo = rng.uniform(-2, 0, NB).astype(np.float32)
+    m.tg_ptr, m.tg_wid = lists(NB, 3)
+    m.tg_wid = m.tg_wid.astype(np.int32)
+    m.tg_prob = rng.uniform(-8, -0.5, len(m.tg_wid)).astype(np.float32)
+    return m
+
+
+def test_lm_entries_kernel_at_the_ptm_cell_shape(cuda):
+    """The kernel at the PTM cell's shape (B=16, E=32, W=64,002: 64,000
+    words in another order than the LM's and two fillers; composite exits,
+    Vr=1) over a synthetic LM with one successor list of 64,000 (<s>'s) and
+    lists of 0-7 elsewhere, a quarter of the exits <s> histories and half
+    trigram contexts: bit-equal to the plain version, with and without the
+    payloads."""
+    from cmusphinx_tpu_torch.models.ngram_device import DeviceNgram
+    from cmusphinx_tpu_torch.ops import lm_entries
+    rng = np.random.RandomState(21)
+    lm = _cell_lm(rng)
+    V, B, E, n_ci = lm.n_words, 16, 32, 40
+    assert int(np.diff(lm.bg_ptr).max()) == 64000
+    lmwid = np.concatenate([rng.permutation(np.arange(1, V)), [-1, -1]])
+    W = len(lmwid)
+    assert W == 64002
+    dlm = DeviceNgram(lm, device=cuda, dense3_limit=0)
+
+    def dev(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a)).to(dtype).to(cuda)
+
+    lmwid_c = dev(np.maximum(lmwid, 0))
+    tab = lm_entries.Tables(
+        lmwid_c, dev(rng.randint(0, n_ci, W)), dev(lmwid < 0, torch.bool),
+        dev(rng.uniform(-12, -6, W), torch.float32),
+        dev(np.zeros((W, n_ci))), lm_entries.successors(dlm, lmwid_c),
+        float(np.float32(6.5)), float(np.float32(np.log(0.65))))
+    h2 = rng.randint(0, V, (B, E))
+    h1 = rng.randint(-1, V, (B, E))
+    tg_b = np.repeat(np.arange(len(lm.bg_wid)), np.diff(lm.tg_ptr))
+    bg_w1 = np.repeat(np.arange(V), np.diff(lm.bg_ptr))
+    pick = rng.choice(tg_b, (B, E // 2))
+    h1[:, ::2], h2[:, ::2] = bg_w1[pick], lm.bg_wid[pick]
+    h2[:, 1::4] = 0
+    ok = rng.rand(B, E) < 0.9
+    slot_rc = rng.uniform(-3000, -2900, (B, E, 1)).astype(np.float32)
+    ex = (torch.tensor(150, device=cuda), dev(ok, torch.bool),
+          dev(rng.randint(0, W, (B, E))), dev(h1), dev(h2),
+          dev(slot_rc, torch.float32), dev(rng.randint(0, n_ci, W)))
+    ent_w, ent_pay = _kernel_against_plain(dlm, tab, ex)
+    assert (ent_w > -1e29).all()
+    starts = ent_pay[..., 2] == 0
+    assert starts.any() and not starts.all()
+
+
+def _force_score_rows(monkeypatch):
+    """Searches built after this use the LM's score_rows backend however
+    small the LM (no dense table)."""
+    from cmusphinx_tpu_torch.models.ngram_device import DeviceNgram
+    monkeypatch.setattr(ngram_search, "DeviceNgram",
+                        lambda lm, device: DeviceNgram(lm, device=device,
+                                                       dense3_limit=0))
+
+
+def _decodes_and_launches(card, cpu, feats):
+    """The same features through the card's search graphed (capturing,
+    then replaying) and eager and through the CPU's: hypotheses equal,
+    tapes bit-equal; `lm_entries.launches` one a padded frame step in each
+    card decode."""
+    from cmusphinx_tpu_torch.ops import lm_entries
+    hyps, tapes = [], []
+    for s, graphs in ((card, True), (card, True), (card, False),
+                      (cpu, False)):
+        s._runner.graphs = graphs
+        lm_entries.launches.clear()
+        hyps.append(s.decode_batch(feats))
+        if s is card:
+            torch.cuda.synchronize()
+            frames = s._last_batch[0][0].shape[1] // s.E
+            assert dict(lm_entries.launches) == {"entries": frames}
+        tapes.append([t.cpu() for t in s._last_batch[0]])
+    card._runner.graphs = True
+    for h, t in zip(hyps[1:], tapes[1:]):
+        _assert_same_hyps(hyps[0], h)
+        assert _same_bits(tapes[0], t)
+    return hyps[0]
+
+
+@pytest.mark.parametrize("case", ["ptm_small", "medium_composite",
+                                  "medium_fanout", "static5k"])
+def test_lm_entries_decodes_equal_graphed_eager_and_cpu(cuda, case,
+                                                        monkeypatch,
+                                                        tmp_path):
+    """Decodes whose readout takes the kernel (the score_rows backend):
+    the PTM SMALL fixture's mpx step (fanout exits; its LM forced off the
+    dense table) and the MEDIUM fixture's mpx steps (composite, fanout)
+    on the CPU scorer's scores, and the 5k flat static step (semi) on the
+    CPU's PsParityScorer's: graphed, eager and CPU tapes bit-equal, the
+    kernel once a padded step; a stream's tapes (37-frame pushes) equal
+    the CPU stream's, the kernel once a padded frame of its chunks.  A
+    MEDIUM tree decode launches none."""
+    from cmusphinx_tpu_torch.api import Decoder
+    from cmusphinx_tpu_torch.decode.ngram_steps import MpxStep
+    from cmusphinx_tpu_torch.ops import lm_entries
+    kw, n_utt = {}, None
+    if case == "ptm_small":
+        fx = fixture.build(0, model="ptm8", size=fixture.SMALL)
+        host_dec = Decoder(device="cpu", **fixture.write_model_dir(
+            fx, str(tmp_path)))
+        host, fp = host_dec.scorer, host_dec.fp
+        kw = {"rcmode": "fanout", "lcmode": "mpx"}
+        _force_score_rows(monkeypatch)
+    elif case == "static5k":
+        fx = fixture.build(0, model="semi", size=fixture.LARGE_5K)
+        raw, meta = fixture.sendump_bytes(fx)
+        host = PsParityScorer(fx.gauden, raw, fx.stream_slices(), topn=4,
+                              wrap_uint8=meta["n_bits"] == 4, device="cpu")
+        fp = FeatPipeline(fx.feat_config(), device="cpu")
+        n_utt = 3
+    else:
+        fx = fixture.build(0, size=fixture.MEDIUM)
+        host = ContinuousScorer(fx.gauden, fx.ln_mixw, device="cpu")
+        fp = FeatPipeline(fx.feat_config(), device="cpu")
+        kw = {"rcmode": case.split("_")[1], "lcmode": "mpx"}
+    card = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, _HostScores(host),
+                       device=cuda, **kw)
+    cpu = NgramSearch(fx.lm, fx.dict, fx.mdef, fx.tmat, host, device="cpu",
+                      **kw)
+    assert card.dlm.tg_dense is None and card.step.ro.lm_tab.succ is not None
+    assert isinstance(card.step, StaticStep if case == "static5k"
+                      else MpxStep)
+    feats = [fp.compute(c) for c in fx.ceps[:n_utt]]
+    hyps = _decodes_and_launches(card, cpu, feats)
+    assert all(h.segments for h in hyps)
+    lm_entries.launches.clear()
+    (gh, gt, _), (ch, ct, _) = (_stream(s, feats[1]) for s in (card, cpu))
+    _assert_same_hyps([gh], [ch])
+    assert _same_bits([t.cpu() for t in gt], ct)
+    chunks = -(-len(feats[1]) // card.CHUNK)
+    assert dict(lm_entries.launches) == {"entries": chunks * card.CHUNK}
+    if case == "medium_composite":
+        tree = _card_search(cuda, fx, lexmode="tree")
+        lm_entries.launches.clear()
+        tree.decode_batch_cep(fx.ceps[:4], FeatPipeline(fx.feat_config(),
+                                                        device=cuda))
+        torch.cuda.synchronize()
+        assert not lm_entries.launches

@@ -487,12 +487,14 @@ def test_port_has_every_module_of_the_reference():
     no TPU kernel: the reference's tree step was XLA-compiled jnp;
     `ops/ptm_parity`'s neither: the reference has no scorer for
     pocketsphinx's PTM models, nor `ops/mpx_step`'s: its mpx step was
-    XLA-compiled jnp too; `ops/cuda_libs` builds the libraries)."""
+    XLA-compiled jnp too, nor `ops/lm_entries`': its cross-word readout
+    was too; `ops/cuda_libs` builds the libraries)."""
     ref, port = _modules("cmusphinx_tpu"), _modules("cmusphinx_tpu_torch")
     assert ref - port == {"ops/pallas_gmm"}
     assert port - ref == {"convert", "fixture", "decode/graphs",
                           "decode/ngram_steps", "decode/results",
                           "ops/cuda_libs",
-                          "ops/fused_gmm", "ops/mpx_step", "ops/ptm_parity",
+                          "ops/fused_gmm", "ops/lm_entries", "ops/mpx_step",
+                          "ops/ptm_parity",
                           "ops/tree_step",
                           "parallel/dryrun", "parallel/senone_shard"}

@@ -201,8 +201,9 @@ def test_block_len_static_unchanged_tree_counts_its_rows():
 def test_every_library_builds_in_one_parallel_step(tmp_path, monkeypatch):
     """`cuda_libs.build_all`: the units of every library not built yet go
     to nvcc at once (K1's four, the tree step's one, the PTM parity
-    kernel's one and the mpx step's one), then each library is linked
-    under its hashed name; a second call builds nothing."""
+    kernel's one, the mpx step's one and the entries kernel's one), then
+    each library is linked under its hashed name; a second call builds
+    nothing."""
     from cmusphinx_tpu_torch.ops import cuda_libs
     monkeypatch.setattr(cuda_libs, "BUILD_DIR", tmp_path)
     started, waited, linked = [], [], []
@@ -227,7 +228,7 @@ def test_every_library_builds_in_one_parallel_step(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_libs.subprocess, "run", link)
     assert cuda_libs.build_all() >= 0.0
     units = sum(len(u) for _, u in cuda_libs.LIBRARIES.values())
-    assert units == 7 and len(started) == units
+    assert units == 8 and len(started) == units
     assert waited == [units] * units            # all started before a wait
     assert sorted(c[-1] for c in started) == sorted(
         str(src) for src, u in cuda_libs.LIBRARIES.values() for _ in u)
